@@ -20,6 +20,15 @@ Phases (every failure exits non-zero; nothing is caught and ignored):
    versions, leaf for leaf.
 4. Times: prove+verify at B=128 and B=1, and each kernel at its main-path
    shape beside its plain version and its bound.
+5. The protocol path (second slice): the window-fold kernel against its
+   plain version (Stark W = 63 and BLS12-377 W = 64, S = 1 and 128); the
+   gather engine against the lane engine at one statement of 3, 4, 26 and 52
+   points; the host Bayer-Groth `ShuffleArgument` proving and verifying a
+   52-card deck at (2, 26) with a statement from the port's `DLCards`,
+   cross-verified both ways with the staged verifier and rejecting a
+   substituted deck; and the reference's `round.rs` game (`play_round`,
+   (2, 26), 4 players, 4 shuffles). Launch counts are read around the
+   argument and around the round; the argument must launch the fold kernel.
 
 Output: progress lines, then one JSON line listing the kernels, then the
 card's name and power limit, then `{"ok": true, "device": {...}}` last.
@@ -45,6 +54,8 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12
 IMAD_PER_SM_CLOCK = 64
 IMAD_PER_S = None  # set by main() from the card
+SM_CLOCK_HZ = None  # the card's maximum SM clock, set by main(); a dependent
+# chain in one thread issues at most one instruction per clock
 
 # Montgomery products of the cheapest complete formulas (Renes-Costello-
 # Batina 2015) on the Stark curve, where a = 1 makes the products by a free:
@@ -53,6 +64,7 @@ IMAD_PER_S = None  # set by main() from the card
 ADD_PRODUCTS = 14
 DBL_PRODUCTS = 13
 
+STAGED_KERNELS = ("mont_mul", "point_add", "msm_lanes")  # the staged flow's kernels
 BATCH = 128  # decks per prove+verify batch, as bench.py's shuffle52 mode
 REPS = 5  # timed prove+verify repetitions per batch size
 WINDOW = 8  # fixed-base window bits, as bench.py:38
@@ -73,16 +85,20 @@ def word_products(L: int) -> int:
     return 2 * nw * nw + nw
 
 
-def imad_rate() -> float:
-    """Peak IMADs per second: 64 per SM per clock at the maximum SM clock."""
-    import torch
-
+def sm_clock_hz() -> float:
+    """The card's maximum SM clock."""
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
         capture_output=True, text=True, timeout=60, check=True,
     )
-    mhz = float(out.stdout.strip().splitlines()[0])
-    return IMAD_PER_SM_CLOCK * torch.cuda.get_device_properties(0).multi_processor_count * mhz * 1e6
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
+
+
+def imad_rate() -> float:
+    """Peak IMADs per second: 64 per SM per clock at the maximum SM clock."""
+    import torch
+
+    return IMAD_PER_SM_CLOCK * torch.cuda.get_device_properties(0).multi_processor_count * SM_CLOCK_HZ
 
 
 def bound(ops_imad: float, nbytes: float):
@@ -155,9 +171,10 @@ def main() -> int:
     from mental_poker_tpu_torch.ops.curve import PointP, map_point, stark_curve
     from mental_poker_tpu_torch.utils.rand import GameRng, ints_to_limbs
 
-    global IMAD_PER_S
+    global IMAD_PER_S, SM_CLOCK_HZ
     dev = torch.device("cuda")
     card = nvidia_smi()
+    SM_CLOCK_HZ = sm_clock_hz()
     IMAD_PER_S = imad_rate()
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}; "
         f"peak {IMAD_PER_S / 1e12:.2f} T IMAD/s")
@@ -323,10 +340,12 @@ def main() -> int:
     log(f"B={B}: checks {dict(zip(checks._fields, ok))}; launches during prove+verify: {launches}")
     if not all(ok):
         raise AssertionError("the verifier rejected an honest batch")
-    for k, v in launches.items():
-        if v <= 0:
+    for k in STAGED_KERNELS:
+        if launches[k] <= 0:
             raise AssertionError(f"kernel {k} was not launched on the main path")
-        kernels[k]["launches"] = v
+        kernels[k]["launches"] = launches[k]
+    if launches["fold_windows"]:
+        raise AssertionError("the staged flow reached the gather engine (its MSMs all have S >= 2)")
     times = [first_ms]
     for _ in range(REPS - 1):
         t0 = time.perf_counter()
@@ -359,10 +378,10 @@ def main() -> int:
     if not all(bool(c.all()) for c in checks1):
         raise AssertionError("the verifier rejected an honest B=1 deck")
     log(f"B=1: launches during prove+verify: {launches1}")
-    for k, v in launches1.items():
-        if v <= 0:
+    for k in STAGED_KERNELS:
+        if launches1[k] <= 0:
             raise AssertionError(f"kernel {k} was not launched on the B=1 path")
-        kernels[k]["launches_b1"] = v
+        kernels[k]["launches_b1"] = launches1[k]
     for _ in range(REPS - 1):
         t0 = time.perf_counter()
         prove_verify(data1)
@@ -440,11 +459,22 @@ def main() -> int:
     kernels["msm_lanes"].update(ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by, shape=f"{name}: S={S}, N={Nm}")
     log(f"msm_lanes [{name}: S={S}, N={Nm}]: {ms:.3f} ms, plain {plain:.1f} ms, bound {bms:.4f} ms ({by})")
 
+    # ------------------------------------------- 5. the protocol path
+    kernels["fold_windows"] = fold_phase(dev, g, kernels)
+    gather_phase(dev, g)
+    arg_s, arg_launches = argument_phase(dev)
+    kernels["fold_windows"]["launches"] = arg_launches["fold_windows"]
+    round_s, round_launches = round_phase(dev)
+    for k, v in round_launches.items():
+        kernels[k]["launches_round"] = v
+
     meta = {
         "mont_mul": ("mental_poker_tpu_torch/csrc/field.cu", "mental_poker_tpu/ops/pallas/field.py:128"),
         "point_add": ("mental_poker_tpu_torch/csrc/curve.cu", "mental_poker_tpu/ops/pallas/curve.py:94"),
+        "fold_windows": ("mental_poker_tpu_torch/csrc/curve.cu", "mental_poker_tpu/ops/pallas/curve.py:146"),
         "msm_lanes": ("mental_poker_tpu_torch/csrc/msm.cu", "mental_poker_tpu/ops/pallas/msm.py:52"),
     }
+    extra = ("shape", "launches_b1", "launches_round", "ms_s128", "plain_ms_s128", "bound_ms_s128", "chain_ms")
     rows = []
     for kname, (src, replaces) in meta.items():
         kv = kernels[kname]
@@ -452,15 +482,200 @@ def main() -> int:
             "name": kname, "route": "cuda", "source": src, "replaces": replaces,
             "launches": kv["launches"], "max_abs_err": kv["max_abs_err"], "ms": kv["ms"],
             "plain_ms": kv["plain_ms"], "bound_ms": kv["bound_ms"], "bound_by": kv["bound_by"],
-            "library_ms": None, "shape": kv["shape"], "launches_b1": kv["launches_b1"],
+            "library_ms": None, **{k: kv[k] for k in extra if k in kv},
         })
     log(json.dumps({"prove_verify": {f"B={B}": {"ms": pv_ms, "pairs_per_s": B / pv_ms * 1e3},
-                                     "B=1": {"ms": pv1_ms, "pairs_per_s": 1e3 / pv1_ms}}}))
+                                     "B=1": {"ms": pv1_ms, "pairs_per_s": 1e3 / pv1_ms}},
+                    "shuffle_argument_2x26_s": arg_s, "round_2x26_4p_4s_s": round_s}))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0
+
+
+def fold_phase(dev, g, kernels, batches=(1, BATCH)) -> dict:
+    """5a. `fold_windows` against its plain version, limb for limb, at the
+    built-in W of each curve (Stark 63, BLS12-377 64) and S statements in
+    `batches`. The window sums are k[w, s] * B for a fixed base B (one window
+    sum the identity), so the host check is (sum_w 2^(4w) k[w, s]) * B.
+    Returns the kernel's row: times at S = 1 and S = 128 on Stark (the host
+    argument's combos give S = 1), its bound, and the chain bound."""
+    import numpy as np
+    import torch
+
+    from mental_poker_tpu_torch.ops.cuda import curve as cuda_curve
+    from mental_poker_tpu_torch.ops.curve import PointP, bls12_377_g1, stark_curve
+    from mental_poker_tpu_torch.ops.msm import FixedBaseTable
+    from mental_poker_tpu_torch.utils.rand import GameRng
+
+    c = cuda_curve.FOLD_WINDOW
+    row = {"max_abs_err": 0.0}
+    bls = bls12_377_g1()
+    bls_base = bls.host.rand_point(GameRng(8).rng)
+    cases = ((stark_curve(), g.generator, g.enc.gen_table), (bls, bls_base, FixedBaseTable(bls, bls_base, c, dev)))
+    for cv, base, table in cases:
+        L, q = cv.fq.L, cv.host.order
+        W = cuda_curve.FOLD_W[L]
+        for S in batches:
+            kh = GameRng(W + S).scalar_limbs(q, (W, S), cv.fr.L).astype(np.int32)
+            kh[W - 1, 0] = 0  # the top window's sum of statement 0 is the identity
+            sums = table.mul(torch.as_tensor(kh, device=dev))  # [W, S] projective points
+            got = cuda_curve.fold_windows(cv, sums, c)
+            want = cuda_curve.fold_windows_plain(cv, sums, c)
+            torch.cuda.synchronize()
+            err = max_abs_err(got, want)
+            if err:
+                raise AssertionError(f"fold_windows {cv.name} W={W} S={S}: kernel differs from plain by {err}")
+            row["max_abs_err"] = max(row["max_abs_err"], err)
+            host = cv.to_host_points(PointP(*got))
+            for s in {0, S - 1}:
+                total = sum(sum(int(v) << (16 * j) for j, v in enumerate(kh[w, s])) << (c * w) for w in range(W))
+                require(host[s] == cv.host.mul(total % q, base), (cv.name, W, S, s))
+            log(f"fold_windows {cv.name} [W={W}, S={S}]: equal to plain; host bigints agree")
+            if cv.name != "stark":
+                continue
+            ms = cuda_ms(lambda: cuda_curve.fold_windows(cv, sums, c), 20, 2)
+            plain = cuda_ms(lambda: cuda_curve.fold_windows_plain(cv, sums, c), 2, 1)
+            chain_imads = (W * ADD_PRODUCTS + c * W * DBL_PRODUCTS) * word_products(L) * 2
+            bms, by = bound(S * chain_imads, (S * W + S) * 3 * L * 4)
+            chain_ms = chain_imads / SM_CLOCK_HZ * 1e3
+            log(f"fold_windows stark [W={W}, S={S}]: {ms:.4f} ms, plain {plain:.1f} ms, bound {bms:.5f} ms ({by}); "
+                f"the chain of {W * (c + 1)} point operations at one IMAD per clock: {chain_ms:.4f} ms")
+            if S == 1:
+                row.update(ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by, chain_ms=chain_ms,
+                           shape=f"Stark W={W}, S=1 (the host argument's combos)")
+            else:
+                row.update(ms_s128=ms, plain_ms_s128=plain, bound_ms_s128=bms)
+    return row
+
+
+def gather_phase(dev, g, sizes=(3, 4, 26, 52)) -> None:
+    """5b. The gather engine against the lane engine at one statement of N
+    points: equal affine points, and the host sum (points a_i * G, so the
+    sum is (sum_i k_i a_i) * G). Times both engines at N = 4."""
+    import numpy as np
+    import torch
+
+    from mental_poker_tpu_torch.ops import msm as msm_mod
+    from mental_poker_tpu_torch.ops.curve import stark_curve
+    from mental_poker_tpu_torch.utils.rand import GameRng, ints_to_limbs
+
+    cv = stark_curve()
+    q = cv.host.order
+    for N in sizes:
+        r = GameRng(300 + N)
+        a = r.scalar_limbs(q, (N,), cv.fr.L).astype(np.int32)
+        a[1] = 0  # an identity point
+        k = r.scalar_limbs(q, (N,), cv.fr.L).astype(np.int32)
+        k[0] = 0
+        k[2] = 0
+        k[2, 0] = 1
+        if N > 3:
+            k[N - 1] = ints_to_limbs([q - 1], cv.fr.L)[0]
+        pts = g.enc.gen_table.mul(torch.as_tensor(a, device=dev))
+        kt = torch.as_tensor(k, device=dev)
+        gathered = msm_mod.msm(cv, pts, kt, engine="gather")
+        lanes = msm_mod.msm(cv, pts, kt, engine="lanes")
+        to_int = lambda v: sum(int(x) << (16 * j) for j, x in enumerate(v))
+        total = sum(to_int(ai) * to_int(ki) for ai, ki in zip(a, k)) % q
+        want = [cv.host.mul(total, g.generator)]
+        require(cv.to_host_points(gathered) == cv.to_host_points(lanes) == want, ("gather vs lanes", N))
+        log(f"msm S=1 N={N}: gather engine equals lane engine; host bigints agree")
+        if N == 4:
+            gms = cuda_ms(lambda: msm_mod.msm(cv, pts, kt, engine="gather"), 10, 2)
+            lms = cuda_ms(lambda: msm_mod.msm(cv, pts, kt, engine="lanes"), 10, 2)
+            log(f"msm S=1 N=4: gather engine {gms:.3f} ms, lane engine {lms:.3f} ms")
+
+
+def argument_phase(dev, m=2, n=26):
+    """5c. The host Bayer-Groth `ShuffleArgument` on a 52-card deck at
+    (m, n) with a statement from the port's `DLCards`: prove, verify (launch
+    counts read around both), the staged verifier on the host proof, the
+    host verifier on a staged proof (`shuffle_and_remask`, through
+    `dev_proof_to_host`), and a substituted deck. Returns (seconds,
+    launches)."""
+    import torch
+
+    from mental_poker_tpu_torch.crypto import elgamal, proof_io
+    from mental_poker_tpu_torch.crypto.errors import HADAMARD, ProofVerificationError
+    from mental_poker_tpu_torch.crypto.transcript import SHUFFLE_RNG_SEED, TranscriptBatch
+    from mental_poker_tpu_torch.models.round import cipher_take
+    from mental_poker_tpu_torch.ops import cuda as cuda_ops
+    from mental_poker_tpu_torch.protocol import api
+    from mental_poker_tpu_torch.protocol.dl_cards import DLCards
+    from mental_poker_tpu_torch.utils.rand import GameRng
+
+    proto = DLCards(device=dev)
+    cv = proto.cv
+    rng = GameRng(2026)
+    N = m * n
+    pp = proto.setup(rng, m, n)
+    pk, sk = proto.player_keygen(rng, pp)
+    agg = proto.compute_aggregate_key(pp, [(pk, proto.prove_key_ownership(rng, pp, pk, sk, b"smoke"), b"smoke")])
+    deck = elgamal.rand_ciphertexts(cv, rng, N, dev)
+    pi = rng.permutation(N)
+    rho = [rng.scalar(cv.host.order) for _ in range(N)]
+    shuffled = proto.remask_cards(pp, agg, cipher_take(deck, list(pi)), rho)
+    arg = api.ShuffleArgument()
+    ts = lambda: TranscriptBatch.fixed(SHUFFLE_RNG_SEED, 1)
+    torch.cuda.synchronize()
+    cuda_ops.reset_launches()
+    t0 = time.perf_counter()
+    proof = arg.prove((pp, agg), (deck, shuffled), (pi, rho), ts(), rng)
+    t1 = time.perf_counter()
+    arg.verify((pp, agg), (deck, shuffled), proof, ts())
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = dict(cuda_ops.LAUNCHES)
+    log(f"ShuffleArgument ({m}, {n}): prove {t1 - t0:.2f} s, verify {t2 - t1:.2f} s, "
+        f"{proof_io.shuffle_proof_size(proof, cv.host)} proof bytes; launches {launches}")
+    # Its scalar algebra is host ints and its points reach the host without a
+    # field product, so it runs no mont_mul; at (2, 26) its 26- and 52-point
+    # MSMs take the lane kernel, its combos the gather engine and the fold.
+    for k in ("point_add", "msm_lanes", "fold_windows"):
+        if launches[k] <= 0:
+            raise AssertionError(f"the host argument did not launch kernel {k}")
+    proto.verify_shuffle(pp, agg, deck, shuffled, proof)
+    log("the staged verifier accepts the host proof (host_proof_to_dev)")
+    shuffled2, staged_proof = proto.shuffle_and_remask(rng, pp, agg, deck, rho, pi)
+    arg.verify((pp, agg), (deck, shuffled2), staged_proof, ts())
+    log("the host verifier accepts a staged proof (dev_proof_to_host)")
+    bogus = elgamal.rand_ciphertexts(cv, GameRng(123), N, dev)
+    try:
+        arg.verify((pp, agg), (deck, bogus), proof, ts())
+    except ProofVerificationError as e:
+        if e.name != HADAMARD:
+            raise AssertionError(f"a substituted deck failed with {e.name!r}, expected {HADAMARD!r}") from e
+        log(f"substituted deck rejected by the host verifier: {e}")
+    else:
+        raise AssertionError("the host verifier accepted a substituted deck")
+    return t2 - t0, launches
+
+
+def round_phase(dev, n=26, num_shuffles=4):
+    """5d. `play_round(seed=7, m=2, n, 4 players, num_shuffles)`, the
+    reference's round.rs shape at n = 26: four distinct cards, each peek
+    equal to its open (play_round raises otherwise). Returns (seconds,
+    launches)."""
+    import torch
+
+    from mental_poker_tpu_torch.models.round import play_round
+    from mental_poker_tpu_torch.ops import cuda as cuda_ops
+
+    torch.cuda.synchronize()
+    cuda_ops.reset_launches()
+    t0 = time.perf_counter()
+    opened = play_round(seed=7, m=2, n=n, num_shuffles=num_shuffles, device=dev)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(cuda_ops.LAUNCHES)
+    require(len(opened) == 4 and len(set(opened.values())) == 4, opened)
+    log(f"round (2, {n}), 4 players, {num_shuffles} shuffles: {secs:.2f} s; opened {opened}; launches {launches}")
+    for k in STAGED_KERNELS:  # the round's shuffles are staged proofs: no gather MSM
+        if launches[k] <= 0:
+            raise AssertionError(f"the round did not launch kernel {k}")
+    return secs, launches
 
 
 def _leaves(tree):

@@ -341,7 +341,7 @@ class StagedShuffle:
             return map_point(lambda q: q.reshape(B, m, n, fqL)[:, idx].reshape(B, 2 * m, m * n, fqL), P)
 
         gboth = cat_points([diag(dout.c0), diag(dout.c1)], dim=1)
-        dboth = msm_mod.msm(cv, gboth, torch.cat([scal, scal], dim=1))
+        dboth = msm_mod.msm(cv, gboth, torch.cat([scal, scal], dim=1), engine="lanes")
         e0 = cv.add(bl0, map_point(lambda q: q[:, : 2 * m], dboth))
         e1 = cv.add(bl1, map_point(lambda q: q[:, 2 * m :], dboth))
         e0a, e1a = _to_aff_many(cv, e0, e1)

@@ -1,8 +1,10 @@
-"""Host Fiat-Shamir transcript pieces: the protocol seeds and ChaCha20.
+"""Host Fiat-Shamir transcripts: the protocol seeds, ChaCha20, FiatShamirRng
+and TranscriptBatch.
 
-A copy of the host parts of `mental_poker_tpu/crypto/transcript.py` that the
-port needs (the five domain-separation seeds, the ChaCha20 word stream that
-backs the seeded `GameRng`, and `FiatShamirRng` for host cross-checks).
+A copy of `mental_poker_tpu/crypto/transcript.py` (host code): the five
+domain-separation seeds, the ChaCha20 word stream that backs the seeded
+`GameRng`, `FiatShamirRng`, and the `TranscriptBatch` of B independent
+transcripts that the sigma protocols and the host Bayer-Groth provers use.
 Semantics are ark-marlin 0.3 `FiatShamirRng<Blake2s>`:
 
 - ``from_seed(bytes)``: ``seed = Blake2s(bytes)``; ChaCha20 keyed with it.
@@ -112,3 +114,26 @@ class FiatShamirRng:
             val = sum(w << (64 * i) for i, w in enumerate(ws))
             if val < modulus:
                 return val * r_inv % modulus
+
+
+class TranscriptBatch:
+    """A batch of B independent Fiat-Shamir transcripts (one per proof)."""
+
+    def __init__(self, seeds: list[bytes]):
+        self.ts = [FiatShamirRng(s) for s in seeds]
+
+    @classmethod
+    def fixed(cls, seed: bytes, batch: int) -> "TranscriptBatch":
+        return cls([seed] * batch)
+
+    def __len__(self):
+        return len(self.ts)
+
+    def absorb(self, blobs: list[bytes]) -> None:
+        if len(blobs) != len(self.ts):
+            raise ValueError(f"{len(blobs)} blobs for {len(self.ts)} transcripts")
+        for t, b in zip(self.ts, blobs):
+            t.absorb(b)
+
+    def sample_field(self, modulus: int) -> list[int]:
+        return [t.sample_field(modulus) for t in self.ts]

@@ -1,4 +1,5 @@
-// Batched complete point addition: (X3:Y3:Z3)[i] = P[i] + Q[i].
+// Batched complete point addition: (X3:Y3:Z3)[i] = P[i] + Q[i], and the
+// window fold of the gather MSM engine (below).
 //
 // Replaces mental_poker_tpu/ops/pallas/curve.py::_add_kernel. One thread per
 // addition runs mont.cuh's point_add (RCB15 Algorithm 1, 17 Montgomery
@@ -57,4 +58,63 @@ extern "C" int mp_point_add(int L, const void* x1, const void* y1, const void* z
     case 24: return launch<12>(in, out, n, w, s);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// ---------------------------------------------------------------------------
+// Window fold: out[i] = sum_w 2^(4 w) * S[w, i], window 0 least significant.
+//
+// Replaces mental_poker_tpu/ops/pallas/curve.py::_fold_kernel (the last step
+// of the gather MSM engine). One thread per statement runs mont.cuh's
+// fold_windows with the accumulator in registers: W * 5 dependent additions
+// (315 for Stark, 320 for BLS12-377), reading each window sum once from
+// device memory and writing the result once. Bound on the H100: for a single
+// statement (the host Bayer-Groth argument's combos) the latency of that
+// chain, not the card's rate; the window (4 bits) and W are built in, as in
+// msm.cu.
+constexpr int kFoldC = 4;
+
+template <int NW, int W>
+__global__ void fold_windows_kernel(const uint32_t* __restrict__ sx, const uint32_t* __restrict__ sy,
+                                    const uint32_t* __restrict__ sz, uint32_t* __restrict__ ox,
+                                    uint32_t* __restrict__ oy, uint32_t* __restrict__ oz, long long n,
+                                    CurveConsts<NW> C) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  Pt<NW> acc;
+  fold_windows<NW, W, kFoldC>(acc, [=](int w, Pt<NW>& s) {
+    const long long off = ((long long)w * n + i) * 2 * NW;
+    load_elem<NW>(sx + off, s.x);
+    load_elem<NW>(sy + off, s.y);
+    load_elem<NW>(sz + off, s.z);
+  }, C);
+  const long long off = i * 2 * NW;
+  store_elem<NW>(ox + off, acc.x);
+  store_elem<NW>(oy + off, acc.y);
+  store_elem<NW>(oz + off, acc.z);
+}
+
+template <int NW, int W>
+static int launch_fold(const void* sx, const void* sy, const void* sz, void* ox, void* oy, void* oz,
+                       long long n, const uint32_t* consts, cudaStream_t stream) {
+  const int threads = 128;
+  const long long blocks = (n + threads - 1) / threads;
+  fold_windows_kernel<NW, W><<<(unsigned)blocks, threads, 0, stream>>>(
+      static_cast<const uint32_t*>(sx), static_cast<const uint32_t*>(sy),
+      static_cast<const uint32_t*>(sz), static_cast<uint32_t*>(ox), static_cast<uint32_t*>(oy),
+      static_cast<uint32_t*>(oz), n, curve_consts<NW>(consts));
+  return (int)cudaGetLastError();
+}
+
+// L: limbs per coordinate; W: windows, built in per curve (Stark L = 16 with
+// W = 63, BLS12-377 G1 L = 24 with W = 64); window sums [W, n, L]; outputs
+// [n, L]; consts as for mp_point_add.
+extern "C" int mp_fold_windows(int L, int W, const void* sx, const void* sy, const void* sz,
+                               void* ox, void* oy, void* oz, long long n, const void* consts,
+                               void* stream) {
+  if (n <= 0) return (int)cudaErrorInvalidValue;
+  const uint32_t* w = static_cast<const uint32_t*>(consts);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (L == 16 && W == 63) return launch_fold<8, 63>(sx, sy, sz, ox, oy, oz, n, w, s);
+  if (L == 24 && W == 64) return launch_fold<12, 64>(sx, sy, sz, ox, oy, oz, n, w, s);
+  return (int)cudaErrorInvalidValue;
 }

@@ -234,3 +234,20 @@ __device__ __forceinline__ void point_add(Pt<NW>& R, const Pt<NW>& P, const Pt<N
   mont_mul(w1, t3, t1b, F);   // v4
   add_mod(R.z, w0, w1, F);    // Z3 = v5 + v4
 }
+
+// Horner fold of W window sums, most significant window first, from the
+// identity: acc = 2^CB acc + S_w for w = W-1 .. 0, the doublings as
+// add(acc, acc). The schedule of mental_poker_tpu/ops/pallas/curve.py::
+// _fold_kernel, W * (CB + 1) dependent additions. `load(w, S)` fills S with
+// window w's sum. Shared by curve.cu's fold kernel and msm.cu's window/fold
+// kernel, so both fold the same way as their plain versions.
+template <int NW, int W, int CB, class Load>
+__device__ __forceinline__ void fold_windows(Pt<NW>& acc, Load load, const CurveConsts<NW>& C) {
+  set_identity<NW>(acc, C);
+  for (int w = W - 1; w >= 0; --w) {
+    for (int b = 0; b < CB; ++b) point_add<NW>(acc, acc, acc, C);
+    Pt<NW> s;
+    load(w, s);
+    point_add<NW>(acc, acc, s, C);
+  }
+}

@@ -15,7 +15,9 @@
 //                           per window: the window sum over the N points (one
 //                           table read and one addition per point), then
 //                           thread 0 folds the W sums MSB-first,
-//                           acc = 2^c acc + S_w (W * (c + 1) additions).
+//                           acc = 2^c acc + S_w (W * (c + 1) additions;
+//                           mont.cuh's fold_windows, which curve.cu's fold
+//                           kernel runs too).
 //
 // The schedule is the same as the plain PyTorch version in ops/cuda/msm.py,
 // so both give the same projective triples limb for limb. Bound on the H100:
@@ -111,13 +113,9 @@ __global__ void msm_window_fold_kernel(const uint32_t* __restrict__ tbl, const u
   }
   __syncthreads();
   if (w == 0) {
-    Pt<NW> acc, e;
-    set_identity<NW>(acc, C);
-    for (int j = W - 1; j >= 0; --j) {
-      for (int b = 0; b < kC; ++b) point_add<NW>(acc, acc, acc, C);
-      load_pt<NW>(sums + j * 3 * NW, e);
-      point_add<NW>(acc, acc, e, C);
-    }
+    const uint32_t* sp = sums;
+    Pt<NW> acc;
+    fold_windows<NW, W, kC>(acc, [sp](int j, Pt<NW>& e) { load_pt<NW>(sp + j * 3 * NW, e); }, C);
     store_elem<NW>(ox + s * 2 * NW, acc.x);
     store_elem<NW>(oy + s * 2 * NW, acc.y);
     store_elem<NW>(oz + s * 2 * NW, acc.z);

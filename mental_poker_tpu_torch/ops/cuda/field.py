@@ -54,17 +54,25 @@ def _field_words(p: int, L: int) -> np.ndarray:
 def mont_mul_plain(fld, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch Montgomery product (int64 arithmetic, any device):
     T = a*b; m = (T mod R) * N' mod R; S = T + m*p; out = S/R - p if >= p.
-    Three schoolbook convolutions and flat carry scans, no limb loop."""
+    Three schoolbook products and flat carry scans, no limb loop.
+
+    Only S is carried to clean limbs. T mod R and m are left after their
+    shift-add rounds (limbs below 2^16 + 2^11 and 2^16 + 2^7): the same
+    values mod R, with m < R (1 + 2^-9). So S/R < a b / R + p (1 + 2^-9),
+    below 2p whenever a b < (1 - 2^-9) R p, and one conditional subtraction
+    gives the unique reduced value, the kernel's limb for limb. That holds
+    for reduced operands (`Field` keeps p < R/2) and for the unreduced ones
+    of `point_add_plain` (limbs below 2^19, a b <= 25 p^2, which it checks
+    against the curve's p/R)."""
     a, b = torch.broadcast_tensors(a, b)
     L = fld.L
-    a64 = a.to(torch.int64)
-    b64 = b.to(torch.int64)
     dev = a.device
-    p = fld.const("p_limbs", dev).to(torch.int64)
-    nprime = fld.const("nprime_limbs", dev).to(torch.int64)
-    T = limbs.carry(limbs.raw_product(a64, b64), 2 * L)
-    m = limbs.carry(limbs.raw_product(T[..., :L], nprime.expand_as(a64)), L)
-    S = limbs.carry(T + limbs.raw_product(m, p.expand_as(m)), 2 * L)
+    p = fld.const("p_limbs", dev, torch.int64)
+    nprime = fld.const("nprime_limbs", dev, torch.int64)
+    T = limbs.raw_product(a.to(torch.int64), b.to(torch.int64))
+    t_lo = limbs.carry(T[..., :L], L, rounds=2, resolve=False)
+    m = limbs.carry(limbs.raw_product(t_lo, nprime), L, rounds=2, resolve=False)
+    S = limbs.carry(T + limbs.raw_product(m, p), 2 * L, rounds=2)
     return limbs.cond_sub(S[..., L:], p).to(torch.int32)
 
 

@@ -32,7 +32,7 @@ import ctypes
 import torch
 
 from . import LAUNCHES, build
-from .curve import curve_words, point_add_plain
+from .curve import curve_words, fold_windows_plain, point_add_plain
 from .field import _check
 
 _ARGS = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_void_p] * 4
@@ -78,12 +78,7 @@ def msm_lanes_plain(cv, P, k: torch.Tensor):
         idx = d[:, i, :, None].expand(S, W, L)
         e = tuple(torch.gather(t[:, i], 1, idx) for t in tbl)
         acc = add(acc, e)
-    out = cv.identity_like(px.new_zeros((S, L)))
-    for w in range(W - 1, -1, -1):
-        for _ in range(c):
-            out = add(out, out)
-        out = add(out, tuple(a[:, w] for a in acc))
-    return out
+    return fold_windows_plain(cv, tuple(a.movedim(1, 0) for a in acc), c)
 
 
 def msm_lanes_cuda(cv, P, k: torch.Tensor):

@@ -95,16 +95,23 @@ class Curve:
         return self.from_affine(f.tensor(xs, device), f.tensor(ys, device), inf)
 
     def to_host_points(self, P: PointP) -> list:
-        """Batched projective point -> list of host (x, y, inf) triples."""
-        x, y, inf = self.to_affine(P)
+        """Batched projective point -> list of host (x, y, inf) triples.
+
+        The projective triples are copied to the host as they are and made
+        affine there with Python ints: the same points as `to_affine` on the
+        device, without its ~311-product Fermat inversion."""
         f = self.fq
-        xs = x.cpu().numpy().reshape(-1, f.L)
-        ys = y.cpu().numpy().reshape(-1, f.L)
-        infs = inf.cpu().numpy().reshape(-1)
-        return [
-            self.host.identity if i else (f.to_int(xi), f.to_int(yi), False)
-            for xi, yi, i in zip(xs, ys, infs)
-        ]
+        p = f.p
+        xs, ys, zs = (c.reshape(-1, f.L).cpu().numpy() for c in P)
+        out = []
+        for xi, yi, zi in zip(xs, ys, zs):
+            z = f.to_int(zi)
+            if z == 0:
+                out.append(self.host.identity)
+                continue
+            zinv = pow(z, -1, p)
+            out.append((f.to_int(xi) * zinv % p, f.to_int(yi) * zinv % p, False))
+        return out
 
     # ------------------------------------------------------------- core ops
     def is_identity(self, P: PointP):

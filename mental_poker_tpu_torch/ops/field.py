@@ -64,13 +64,13 @@ class Field:
         """Host limb array -> int32 tensor on `device`."""
         return torch.as_tensor(np.asarray(host).astype(np.int32), device=device)
 
-    def const(self, name: str, device) -> torch.Tensor:
+    def const(self, name: str, device, dtype=LIMB_DTYPE) -> torch.Tensor:
         """A host constant (`p_limbs`, `one_mont`, ...) as a cached tensor."""
         device = torch.device(device)
-        key = (name, device)
+        key = (name, device, dtype)
         t = self._consts.get(key)
         if t is None:
-            t = self.tensor(getattr(self, name), device)
+            t = self.tensor(getattr(self, name), device).to(dtype)
             self._consts[key] = t
         return t
 

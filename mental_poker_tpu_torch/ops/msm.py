@@ -1,9 +1,11 @@
 """Multi-scalar multiplication (counterpart of `mental_poker_tpu/ops/msm.py`).
 
-- Variable-base MSM (`msm`): every statement's sum goes to the per-statement
-  kernel (`ops/cuda/msm.py`, the Hopper twin of the TPU lane kernel), after
-  the wide-split mapping spreads the points of few-statement calls over
-  several statements.
+- Variable-base MSM (`msm`), two engines chosen by the JAX package's rule:
+  the per-statement kernel (`ops/cuda/msm.py`, the Hopper twin of the TPU
+  lane kernel), after the wide-split mapping spreads the points of
+  few-statement calls over several statements; and, for one statement of
+  fewer than 16 points, the gather engine (`msm_gather`), which ends in the
+  window-fold kernel (`ops/cuda/curve.py::fold_windows`).
 - Fixed-base multiply/MSM (`FixedBaseTable`, `FixedBaseMSM`): full window
   tables T[w][d] = d * 2^(c w) * B built once per base, so a multiply is a
   gather of W entries and a tree sum (W - 1 additions, no doublings). The
@@ -17,6 +19,7 @@ from __future__ import annotations
 
 import torch
 
+from .cuda import curve as cuda_curve
 from .cuda import msm as cuda_msm
 from .curve import Curve, PointP, map_point, stack_points
 
@@ -43,11 +46,26 @@ def split_factor(S: int, N: int) -> int:
     return F
 
 
-def msm(cv: Curve, points: PointP, scalars: torch.Tensor) -> PointP:
+def use_lanes(S: int, N: int) -> bool:
+    """The JAX package's engine rule for `engine=None` (its TPU path): the
+    lane kernel for two or more statements or 16 or more points, else the
+    gather engine."""
+    return S >= 2 or N >= 16
+
+
+def msm(cv: Curve, points: PointP, scalars: torch.Tensor, engine: str | None = None) -> PointP:
     """sum_i scalars[..., i] * points[..., i] over the second-to-last axis.
 
     points: coordinates [..., N, L]; scalars: canonical limbs [..., N, Lk]
     (batch dims broadcast). Returns PointP [..., L].
+
+    `engine`: "lanes" (the per-statement kernel, after the wide-split
+    mapping), "gather" (`msm_gather`: per-point tables, one gather, tree
+    sums, the window-fold kernel) or None for the JAX package's rule
+    (`use_lanes`: lanes when the flat statement count S >= 2 or N >= 16).
+    The rule is the same on every device: the JAX package's CPU path always
+    gathers, but the port's CPU tests take the route the card takes. The two
+    engines give the same sums as points, not the same projective triples.
     """
     L = points.x.shape[-1]
     Lk = scalars.shape[-1]
@@ -58,6 +76,11 @@ def msm(cv: Curve, points: PointP, scalars: torch.Tensor) -> PointP:
         S *= d
     k = scalars.expand(batch + (N, Lk)).reshape(S, N, Lk)
     P = map_point(lambda q: q.expand(batch + (N, L)).reshape(S, N, L), points)
+    if engine not in (None, "lanes", "gather"):
+        raise ValueError(f"msm: unknown engine {engine!r}")
+    if engine == "gather" or (engine is None and not use_lanes(S, N)):
+        out = msm_gather(cv, P, k)
+        return map_point(lambda q: q.reshape(batch + (L,)), out)
     F = split_factor(S, N)
     if F > 1:
         Nf = -(-N // F)
@@ -71,6 +94,23 @@ def msm(cv: Curve, points: PointP, scalars: torch.Tensor) -> PointP:
     if F > 1:
         out = cv.sum_points(map_point(lambda q: q.reshape(S, F, L), out), axis=1)
     return map_point(lambda q: q.reshape(batch + (L,)), out)
+
+
+def msm_gather(cv: Curve, P: PointP, k: torch.Tensor, c: int = cuda_curve.FOLD_WINDOW) -> PointP:
+    """The gather engine (`mental_poker_tpu/ops/msm.py::_msm_impl`) on flat
+    statements: P coordinates [S, N, L], k canonical limbs [S, N, Lk] ->
+    PointP [S, L]. Per-point multiples tables, one gather of every window's
+    entry [W, S, N, L], a tree sum over N, then the window fold
+    (`ops/cuda/curve.py::fold_windows`, the kernel on the card)."""
+    S, N, L = P.x.shape
+    table = cv.multiples_table(P, c)  # [S, N, T, L]
+    T = table.x.shape[-2]
+    digits = scalar_digits(k, c, cv.fr.bits).long()  # [W, S, N]
+    row = torch.arange(S * N, device=k.device).reshape(S, N) * T
+    flat_idx = row + digits  # [W, S, N]
+    pts = map_point(lambda q: q.reshape(S * N * T, L)[flat_idx], table)  # [W, S, N, L]
+    sums = cv.sum_points(pts, axis=2)  # [W, S, L]
+    return PointP(*cuda_curve.fold_windows(cv, sums, c))
 
 
 def build_window_tables(cv: Curve, bases: PointP, c: int) -> PointP:

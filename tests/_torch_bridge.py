@@ -3,7 +3,25 @@
 tensors on the CPU (port)."""
 
 import numpy as np
+import pytest
 import torch
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Run the module's tests with one intra-op torch thread and in
+    `torch.inference_mode` (import this fixture into a test module to apply
+    it). The plain versions run long chains of tiny tensor ops: on a CPU
+    shared with other test workers the intra-op thread pool makes them many
+    times slower (a Stark `DLCards` setup at (2, 2): 6 s on one thread,
+    213 s on eight beside a JAX compile), and inference mode skips the
+    autograd bookkeeping of every op (the port never differentiates), about
+    a sixth of a plain point addition's time."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    with torch.inference_mode():
+        yield
+    torch.set_num_threads(before)
 
 
 def to_torch(a) -> torch.Tensor:

@@ -16,7 +16,7 @@ from mental_poker_tpu_torch.ops import field as tfield
 from mental_poker_tpu_torch.ops.cuda import curve as cuda_curve
 from mental_poker_tpu_torch.ops.cuda import field as cuda_field
 from mental_poker_tpu_torch.ops.cuda import msm as cuda_msm
-from mental_poker_tpu_torch.ops.curve import PointP, stark_curve
+from mental_poker_tpu_torch.ops.curve import PointP, bls12_377_g1, stark_curve
 from mental_poker_tpu_torch.utils.rand import GameRng
 
 pytestmark = pytest.mark.cuda
@@ -60,3 +60,15 @@ def test_msm_kernel_equals_plain(dev):
     got = cuda_msm.msm_lanes(cv, P, k)
     want = cuda_msm.msm_lanes_plain(cv, P, k)
     assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("curve", [stark_curve, bls12_377_g1])
+def test_fold_windows_kernel_equals_plain(dev, curve):
+    cv = curve()
+    W = cuda_curve.FOLD_W[cv.fq.L]
+    S = PointP(*(t.reshape(W, 3, -1) for t in _points(cv, 3 * W, 5, dev)))
+    got = cuda_curve.fold_windows(cv, S, cuda_curve.FOLD_WINDOW)
+    want = cuda_curve.fold_windows_plain(cv, S, cuda_curve.FOLD_WINDOW)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    with pytest.raises(ValueError):
+        cuda_curve.fold_windows(cv, PointP(*(t[:5] for t in S)), cuda_curve.FOLD_WINDOW)  # W not built in

@@ -19,7 +19,7 @@ from mental_poker_tpu_torch.ops import curve as tcurve
 from mental_poker_tpu_torch.ops.curve import PointP
 from mental_poker_tpu_torch.ops.cuda import curve as cuda_curve
 
-from _torch_bridge import to_np, to_torch
+from _torch_bridge import one_torch_thread, to_np, to_torch  # noqa: F401
 
 CURVES = ["stark_curve", "bls12_377_g1"]
 

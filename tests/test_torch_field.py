@@ -16,7 +16,7 @@ from mental_poker_tpu.ops.pallas import field as pfield
 from mental_poker_tpu_torch.ops import field as tfield
 from mental_poker_tpu_torch.ops.cuda import field as cuda_field
 
-from _torch_bridge import to_np, to_torch
+from _torch_bridge import one_torch_thread, to_np, to_torch  # noqa: F401
 
 FIELDS = ["stark_fq", "stark_fr", "bls12_377_fq"]
 

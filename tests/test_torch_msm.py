@@ -22,7 +22,7 @@ from mental_poker_tpu_torch.ops import msm as tmsm
 from mental_poker_tpu_torch.ops.cuda import msm as cuda_msm
 from mental_poker_tpu_torch.ops.curve import PointP
 
-from _torch_bridge import to_torch
+from _torch_bridge import one_torch_thread, to_torch  # noqa: F401
 
 
 @pytest.fixture(scope="module")

@@ -31,7 +31,7 @@ from mental_poker_tpu_torch.ops.curve import PointP, map_point, stark_curve
 from mental_poker_tpu_torch.ops.msm import FixedBaseTable
 from mental_poker_tpu_torch.utils.rand import GameRng
 
-from _torch_bridge import leaves, rebuild, to_jax_tree, to_np, to_torch
+from _torch_bridge import leaves, one_torch_thread, rebuild, to_jax_tree, to_np, to_torch  # noqa: F401
 
 M, N_COLS = 2, 4
 N = M * N_COLS

@@ -24,7 +24,7 @@ from mental_poker_tpu_torch.ops.curve import stark_curve
 from mental_poker_tpu_torch.ops.field import stark_fr
 from mental_poker_tpu_torch.utils.rand import GameRng
 
-from _torch_bridge import to_np
+from _torch_bridge import one_torch_thread, to_np  # noqa: F401
 
 
 def test_blake2s_matches_hashlib():
