@@ -96,12 +96,13 @@ def msm(cv: Curve, points: PointP, scalars: torch.Tensor, engine: str | None = N
     return map_point(lambda q: q.reshape(batch + (L,)), out)
 
 
-def msm_gather(cv: Curve, P: PointP, k: torch.Tensor, c: int = cuda_curve.FOLD_WINDOW) -> PointP:
+def msm_gather(cv: Curve, P: PointP, k: torch.Tensor) -> PointP:
     """The gather engine (`mental_poker_tpu/ops/msm.py::_msm_impl`) on flat
     statements: P coordinates [S, N, L], k canonical limbs [S, N, Lk] ->
     PointP [S, L]. Per-point multiples tables, one gather of every window's
     entry [W, S, N, L], a tree sum over N, then the window fold
     (`ops/cuda/curve.py::fold_windows`, the kernel on the card)."""
+    c = cuda_curve.FOLD_WINDOW
     S, N, L = P.x.shape
     table = cv.multiples_table(P, c)  # [S, N, T, L]
     T = table.x.shape[-2]

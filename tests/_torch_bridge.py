@@ -24,6 +24,12 @@ def one_torch_thread():
     torch.set_num_threads(before)
 
 
+def dense_below_p(p: int, L: int) -> int:
+    """The largest value below p whose limbs under the top one are all 0xFFFF
+    (the densest reduced operand for the plain limb arithmetic)."""
+    return ((p >> (16 * (L - 1))) << (16 * (L - 1))) - 1
+
+
 def to_torch(a) -> torch.Tensor:
     """JAX/numpy limb array (uint32) or bool array -> CPU tensor (int32/bool)."""
     a = np.asarray(a)

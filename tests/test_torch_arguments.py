@@ -14,8 +14,9 @@
   output deck raises "Hadamard Product (5.1)". Every combo of its verifier is
   a one-statement MSM of at most 4 points: the gather engine.
 - Inside the port, the interop of `tests/test_device_arguments.py`: the
-  staged verifier accepts the host proof (`host_proof_to_dev`) and the host
-  verifier accepts a staged proof (`dev_proof_to_host`).
+  staged verifier accepts the host proof (`host_proof_to_dev`). The other
+  direction, the host verifier on a staged proof (`dev_proof_to_host`), is
+  in `tests/test_torch_round.py`, on the proof its round makes.
 
 The JAX values are pinned below; the `slow` test recomputes them live.
 Tolerance: exact equality of bytes.
@@ -28,17 +29,15 @@ import types
 
 import numpy as np
 import pytest
-import torch
 
 from mental_poker_tpu.crypto import proof_io as jproof_io
-from mental_poker_tpu_torch.arguments import device_api, hadamard, product, zero
+from mental_poker_tpu_torch.arguments import hadamard, product, zero
 from mental_poker_tpu_torch.arguments import multi_exponentiation as me
 from mental_poker_tpu_torch.arguments import single_value_product as svp
 from mental_poker_tpu_torch.arguments.common import bilinear, com_many, vec_hadamard
 from mental_poker_tpu_torch.arguments.shuffle import _as_matrix
 from mental_poker_tpu_torch.crypto import elgamal, pedersen, proof_io
 from mental_poker_tpu_torch.crypto.errors import HADAMARD, MULTI_EXP, SVP_ARG, ZERO_ARG, ProofVerificationError
-from mental_poker_tpu_torch.crypto.group import scalars_to_limbs
 from mental_poker_tpu_torch.crypto.serialize import point_to_bytes_compressed, scalar_to_bytes
 from mental_poker_tpu_torch.crypto.transcript import SHUFFLE_RNG_SEED, TranscriptBatch
 from mental_poker_tpu_torch.models.round import cipher_take
@@ -425,7 +424,7 @@ def shuffle_env():
     pp, agg, deck, shuffled, pi, rho, rng = _shuffle_statement(proto, GameRng, elgamal, cipher_take, device="cpu")
     ts = TranscriptBatch.fixed(SHUFFLE_RNG_SEED, 1)
     proof = api.ShuffleArgument().prove((pp, agg), (deck, shuffled), (pi, rho), ts, rng)
-    return types.SimpleNamespace(proto=proto, pp=pp, agg=agg, deck=deck, shuffled=shuffled, pi=pi, rho=rho, proof=proof)
+    return types.SimpleNamespace(proto=proto, pp=pp, agg=agg, deck=deck, shuffled=shuffled, proof=proof)
 
 
 def _host_verify(env, deck_out, proof):
@@ -455,19 +454,6 @@ def test_substituted_deck_fails_hadamard(shuffle_env):
 def test_staged_verifier_accepts_host_proof(shuffle_env):
     env = shuffle_env
     env.proto.verify_shuffle(env.pp, env.agg, env.deck, env.shuffled, env.proof)
-
-
-def test_host_verifier_accepts_staged_proof(shuffle_env):
-    env = shuffle_env
-    pp = env.pp
-    cv = pp.cv
-    bat = lambda c: type(c)(*(type(p)(*(t[None] for t in p)) for p in c))
-    rho_c = scalars_to_limbs(env.rho, cv.fr.L, "cpu", (1, 4))
-    pi = torch.as_tensor(np.asarray(env.pi, np.int64)[None])
-    rand = device_api.sample_shuffle_rand(GameRng(10), pp.m, pp.n, cv.fr.L, cv.host.order, device="cpu")
-    keys = device_api.make_keys(pp, env.agg)
-    dev_proof = device_api.prove_shuffle(cv, pp.m, pp.n, keys, bat(env.deck), bat(env.shuffled), pi, rho_c, rand)
-    _host_verify(env, env.shuffled, device_api.dev_proof_to_host(cv, dev_proof))
 
 
 @pytest.mark.slow

@@ -19,7 +19,7 @@ from mental_poker_tpu_torch.ops import curve as tcurve
 from mental_poker_tpu_torch.ops.curve import PointP
 from mental_poker_tpu_torch.ops.cuda import curve as cuda_curve
 
-from _torch_bridge import one_torch_thread, to_np, to_torch  # noqa: F401
+from _torch_bridge import dense_below_p, one_torch_thread, to_np, to_torch  # noqa: F401
 
 CURVES = ["stark_curve", "bls12_377_g1"]
 
@@ -53,6 +53,61 @@ def test_add_matches_jax_and_host(name):
     assert tc.to_host_points(tc.dbl(TP)) == [h.add(p, p) for p in ps]
     with pytest.raises(ValueError):
         cuda_curve.point_add_cuda(tc, TP, TQ)
+
+
+def _rcb_add_host(cv, P, Q):
+    """RCB15 Algorithm 1 on Montgomery-form ints (products u v R^-1 mod p)."""
+    p = cv.fq.p
+    R = 1 << (16 * cv.fq.L)
+    Ri = pow(R, -1, p)
+    mul = lambda u, v: u * v * Ri % p
+    a, b3 = cv.a_int * R % p, 3 * cv.host.b * R % p
+    X1, Y1, Z1 = P
+    X2, Y2, Z2 = Q
+    t0, t1, t2 = mul(X1, X2), mul(Y1, Y2), mul(Z1, Z2)
+    t3 = mul(X1 + Y1, X2 + Y2) - t0 - t1
+    t4 = mul(X1 + Z1, X2 + Z2) - t0 - t2
+    t5 = mul(Y1 + Z1, Y2 + Z2) - t1 - t2
+    Z3 = mul(a, t4) + mul(b3, t2)
+    X3, Z3 = t1 - Z3, t1 + Z3
+    Y3 = mul(X3, Z3)
+    t1 = 3 * t0 + mul(a, t2)
+    t4 = mul(b3, t4) + mul(a, t0 - mul(a, t2))
+    Y3 = Y3 + mul(t1, t4)
+    X3 = mul(X3, t3) - mul(t5, t4)
+    Z3 = mul(t5, Z3) + mul(t3, t1)
+    return X3 % p, Y3 % p, Z3 % p
+
+
+@pytest.mark.parametrize("name", CURVES)
+def test_plain_add_exact_at_operand_bounds(name):
+    """`point_add_plain` keeps sums and differences unreduced; feed it the
+    largest coordinates (p - 1, p - 2, a dense value below p whose lower
+    limbs are all 0xFFFF, 0) in every role, doubling included, and hold
+    each limb of the result against the formula in host ints. A real point
+    scaled to X = p - 1 doubles to the host's double."""
+    tc = getattr(tcurve, name)()
+    p, L = tc.fq.p, tc.fq.L
+    dense = dense_below_p(p, L)
+    near = [p - 1, p - 2, dense, dense - 1, 0]
+    rng = random.Random(6)
+    ps = [(p - 1,) * 3, (dense,) * 3, (p - 1, dense, p - 1), (0, p - 1, 0)]
+    qs = [(p - 1,) * 3, (dense,) * 3, (dense, p - 1, dense), (p - 1, 0, p - 1)]
+    for i in range(12):
+        P = tuple(rng.choice(near) for _ in range(3))
+        ps.append(P)
+        qs.append(P if i % 2 else tuple(rng.choice(near) for _ in range(3)))
+    pt = _points(tc, 1, 7)[0]
+    X, Y, Z = (v * tc.fq.R % p for v in (pt[0], pt[1], 1))
+    lam = (p - 1) * pow(X, -1, p) % p
+    scaled = (p - 1, Y * lam % p, Z * lam % p)
+    ps.append(scaled)
+    qs.append(scaled)
+    coords = lambda pts: [torch.as_tensor(ints_to_limbs([P[j] for P in pts], L).astype(np.int32)) for j in range(3)]
+    got = cuda_curve.point_add_plain(tc, coords(ps), coords(qs))
+    rows = lambda t: [sum(int(x) << (16 * i) for i, x in enumerate(r)) for r in t.tolist()]
+    assert list(zip(*(rows(t) for t in got))) == [_rcb_add_host(tc, P, Q) for P, Q in zip(ps, qs)]
+    assert tc.to_host_points(PointP(*(t[-1:] for t in got))) == [tc.host.add(pt, pt)]
 
 
 @pytest.mark.parametrize("name", CURVES)

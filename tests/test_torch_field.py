@@ -14,9 +14,11 @@ import torch
 from mental_poker_tpu.ops import field as jfield
 from mental_poker_tpu.ops.pallas import field as pfield
 from mental_poker_tpu_torch.ops import field as tfield
+from mental_poker_tpu_torch.ops.cuda import curve as cuda_curve
 from mental_poker_tpu_torch.ops.cuda import field as cuda_field
+from mental_poker_tpu_torch.utils.rand import int_to_limbs
 
-from _torch_bridge import one_torch_thread, to_np, to_torch  # noqa: F401
+from _torch_bridge import dense_below_p, one_torch_thread, to_np, to_torch  # noqa: F401
 
 FIELDS = ["stark_fq", "stark_fr", "bls12_377_fq"]
 
@@ -49,6 +51,31 @@ def test_mont_mul_broadcasts_and_refuses_cpu_kernel_launch():
     assert torch.equal(got, want)
     with pytest.raises(ValueError):
         cuda_field.mont_mul_cuda(tf, a, b.expand_as(a).contiguous())
+
+
+@pytest.mark.parametrize("fname", ["stark_fq", "bls12_377_fq"])
+def test_mont_mul_plain_exact_at_operand_bounds(fname):
+    """The plain product on the largest operands the plain point addition
+    gives it, against host ints: reduced p - 1 and a dense value below p,
+    sums u + v (below 2p, limbs to 2^17) and 3u + v (below 4p), and
+    u - v + 4p through `_lazy_offset` (below 5p, limbs to 2^19). Every pair,
+    so products reach 25 p^2, the bound the plain version is exact to."""
+    tf = getattr(tfield, fname)()
+    p, L = tf.p, tf.L
+    off = cuda_curve._lazy_offset(p, L, torch.device("cpu")).to(torch.int64)
+    lim = lambda v: torch.as_tensor(int_to_limbs(v, L).astype(np.int64))
+    value = lambda t: sum(int(x) << (16 * i) for i, x in enumerate(t.tolist()))
+    c1, c2 = lim(p - 1), lim(dense_below_p(p, L))
+    s1, s2 = c1 + c1, c2 + c2
+    ops = [c1, c2, s2, 3 * c2 + c2, c1 + off, c2 + off, off - s2, c2 - s1 + off, c1 - s2 + off, c2 - s2 + off]
+    A = torch.stack(ops)
+    assert int(A.min()) >= 0 and int(A.max()) < 1 << 19
+    vals = [value(t) for t in ops]
+    assert max(vals) < 5 * p
+    Ri = pow(1 << (16 * L), -1, p)
+    n = len(ops)
+    got = cuda_field.mont_mul_plain(tf, A.repeat_interleave(n, 0).to(torch.int32), A.repeat(n, 1).to(torch.int32))
+    assert [value(r) for r in got] == [u * v * Ri % p for u in vals for v in vals]
 
 
 OPS = ["add", "sub", "neg", "sqr", "to_mont", "from_mont", "inv", "eq", "canonical_lt"]
