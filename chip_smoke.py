@@ -29,6 +29,23 @@ Phases (every failure exits non-zero; nothing is caught and ignored):
    substituted deck; and the reference's `round.rs` game (`play_round`,
    (2, 26), 4 players, 4 shuffles). Launch counts are read around the
    argument and around the round; the argument must launch the fold kernel.
+   The engine rule: both engines timed at one statement of 1 to 15 points.
+6. The chunked MSM (third slice): its kernel against its plain version
+   (phase 2d) at every shape the staged flow gives it at `msm_nc = 8` (the
+   five B=128 shapes after the wide split, the verifier's B=1 combos), at
+   Stark S = 3, N = 5, NC = 4 and at two BLS12-377 shapes, window sums limb
+   for limb and their folds against host bigints; the main path again with
+   `msm_nc = 8` (phase 3b: the B=128 proof must equal the nc = 1 proof leaf
+   for leaf, with the chunked and fold kernels launched and the lane kernel
+   not; the tampered deck rejected at nc = 8 too); and the reference's
+   parameter sweep (`run_sweep`, N = 300 cards at five (m, n) splits on
+   BLS12-377) with `msm_nc = 8`, every point verified, then the kernel
+   against plain at every shape the sweep launched it at. A chunked launch
+   of phase 3b or of the tampered check at a shape phase 2d did not compare
+   fails the run.
+
+Every phase runs with `msm_nc = 1` (the per-statement MSM kernel) unless it
+says otherwise, whatever `MPTPU_MSM_NC` holds.
 
 Output: progress lines, then one JSON line listing the kernels, then the
 card's name and power limit, then `{"ok": true, "device": {...}}` last.
@@ -37,6 +54,7 @@ card's name and power limit, then `{"ok": true, "device": {...}}` last.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -64,7 +82,9 @@ SM_CLOCK_HZ = None  # the card's maximum SM clock, set by main(); a dependent
 ADD_PRODUCTS = 14
 DBL_PRODUCTS = 13
 
-STAGED_KERNELS = ("mont_mul", "point_add", "msm_lanes")  # the staged flow's kernels
+STAGED_KERNELS = ("mont_mul", "point_add", "msm_lanes")  # the staged flow's kernels at nc = 1
+CHUNKED_KERNELS = ("mont_mul", "point_add", "msm_chunked", "fold_windows")  # ... and at nc = 8
+NC = 8  # points per step of the chunked MSM on its paths
 BATCH = 128  # decks per prove+verify batch, as bench.py's shuffle52 mode
 REPS = 5  # timed prove+verify repetitions per batch size
 WINDOW = 8  # fixed-base window bits, as bench.py:38
@@ -157,7 +177,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, HERE)
 
-    from mental_poker_tpu_torch import params
+    from mental_poker_tpu_torch import config, params
     from mental_poker_tpu_torch.arguments import device_api
     from mental_poker_tpu_torch.crypto import elgamal
     from mental_poker_tpu_torch.crypto.elgamal import Ciphertexts
@@ -173,6 +193,7 @@ def main() -> int:
 
     global IMAD_PER_S, SM_CLOCK_HZ
     dev = torch.device("cuda")
+    config.set_config(config.RuntimeConfig(msm_nc=1))  # phases with nc = 8 say so
     card = nvidia_smi()
     SM_CLOCK_HZ = sm_clock_hz()
     IMAD_PER_S = imad_rate()
@@ -297,6 +318,16 @@ def main() -> int:
         log(f"msm_lanes {name} [S={S}, N={N}]: equal to plain; host bigints agree")
     kernels["msm_lanes"] = dict(max_abs_err=errs)
 
+    # ------------------------------------- 2d. msm_chunked vs plain
+    # 2c's shapes, and the verifier's combos at B=1 (the tampered deck at nc = 8)
+    shapes_b1 = [(f"{name} at B=1", S // B, N) for name, S, N in shapes if name.startswith("combo")]
+    kernels["msm_chunked"], compared = chunked_phase(dev, g, shapes + shapes_b1)
+
+    def all_compared(seen, where):
+        missing = sorted(seen - compared)
+        if missing:
+            raise AssertionError(f"{where} launched the chunked kernel at shapes not held against plain: {missing}")
+
     # ------------------------------------------------------ 3. the main path
     m, n = 2, 26
     N = m * n
@@ -344,8 +375,9 @@ def main() -> int:
         if launches[k] <= 0:
             raise AssertionError(f"kernel {k} was not launched on the main path")
         kernels[k]["launches"] = launches[k]
-    if launches["fold_windows"]:
-        raise AssertionError("the staged flow reached the gather engine (its MSMs all have S >= 2)")
+    if launches["fold_windows"] or launches["msm_chunked"]:
+        raise AssertionError("at nc = 1 the staged flow launched the fold or the chunked kernel "
+                             "(its MSMs all have S >= 2, so no gather engine)")
     times = [first_ms]
     for _ in range(REPS - 1):
         t0 = time.perf_counter()
@@ -354,6 +386,37 @@ def main() -> int:
     pv_ms = sorted(times)[len(times) // 2]
     log(f"prove+verify B={B}: {pv_ms:.1f} ms per batch (runs {[round(t, 1) for t in times]}), "
         f"{B / pv_ms * 1e3:.2f} pairs/s")
+
+    # ------------------------------------------- 3b. the main path at nc = 8
+    seen8 = set()
+    with config.override(msm_nc=NC), chunked_shapes(seen8):
+        prove_verify(data)
+        cuda_ops.reset_launches()
+        t0 = time.perf_counter()
+        proof8, checks8 = prove_verify(data)
+        times8 = [(time.perf_counter() - t0) * 1e3]
+        launches8 = dict(cuda_ops.LAUNCHES)
+        for _ in range(2):
+            t0 = time.perf_counter()
+            prove_verify(data)
+            times8.append((time.perf_counter() - t0) * 1e3)
+    log(f"B={B}, msm_nc={NC}: launches during prove+verify: {launches8}")
+    if not all(bool(c.all()) for c in checks8):
+        raise AssertionError(f"the verifier rejected an honest batch at msm_nc = {NC}")
+    for k in CHUNKED_KERNELS:
+        if launches8[k] <= 0:
+            raise AssertionError(f"kernel {k} was not launched on the main path at msm_nc = {NC}")
+    if launches8["msm_lanes"] or launches8["fold_windows"] != launches8["msm_chunked"]:
+        raise AssertionError("at msm_nc = 8 every variable-base MSM must be one chunked launch and one fold")
+    diff = [i for i, (a_, b_) in enumerate(zip(_leaves(proof), _leaves(proof8))) if not torch.equal(a_, b_)]
+    if diff or len(_leaves(proof)) != len(_leaves(proof8)):
+        raise AssertionError(f"the msm_nc = {NC} proof differs from the nc = 1 proof at leaves {diff}")
+    all_compared(seen8, f"the main path at msm_nc = {NC}")
+    kernels["msm_chunked"]["launches"] = launches8["msm_chunked"]
+    kernels["fold_windows"] = dict(launches_nc8=launches8["fold_windows"])
+    pv8_ms = sorted(times8)[1]
+    log(f"prove+verify B={B}, msm_nc={NC}: {pv8_ms:.1f} ms per batch (runs {[round(t, 1) for t in times8]}), "
+        f"{B / pv8_ms * 1e3:.2f} pairs/s; the proof equals the nc = 1 proof ({len(_leaves(proof8))} leaves)")
 
     if args.profile:
         os.makedirs(args.profile, exist_ok=True)
@@ -389,18 +452,25 @@ def main() -> int:
     pv1_ms = sorted(times1)[len(times1) // 2]
     log(f"prove+verify B=1: {pv1_ms:.1f} ms (runs {[round(t, 1) for t in times1]}), {1e3 / pv1_ms:.3f} pairs/s")
 
-    # tampered deck: two output cards swapped
+    # tampered deck: two output cards swapped; at nc = 1 and at nc = 8
     bad_c0 = map_point(lambda t: t[:, [1, 0] + list(range(2, N))], data1[1].c0)
     bad = Ciphertexts(bad_c0, data1[1].c1)
-    checks_bad = device_api.verify_shuffle(cv, m, n, g.keys, data1[0], bad, proof1)
-    try:
-        device_api.raise_by_flags(checks_bad)
-    except ProofVerificationError as e:
-        if e.name != HADAMARD:
-            raise AssertionError(f"tampered deck failed with {e.name!r}, expected {HADAMARD!r}") from e
-        log(f"tampered deck rejected: {e}")
-    else:
-        raise AssertionError("a tampered deck was accepted")
+    seen_bad = set()
+    for nc in (1, NC):
+        with config.override(msm_nc=nc), chunked_shapes(seen_bad):
+            checks_bad = device_api.verify_shuffle(cv, m, n, g.keys, data1[0], bad, proof1)
+        try:
+            device_api.raise_by_flags(checks_bad)
+        except ProofVerificationError as e:
+            if e.name != HADAMARD:
+                raise AssertionError(f"tampered deck failed with {e.name!r} at msm_nc = {nc}, "
+                                     f"expected {HADAMARD!r}") from e
+            log(f"tampered deck rejected at msm_nc = {nc}: {e}")
+        else:
+            raise AssertionError(f"a tampered deck was accepted at msm_nc = {nc}")
+    if not seen_bad:
+        raise AssertionError(f"the tampered deck's check at msm_nc = {NC} did not reach the chunked kernel")
+    all_compared(seen_bad, f"the B=1 verifier at msm_nc = {NC}")
 
     # the card's (2, 4) proof equals the CPU plain versions' proof
     ms_, ns_ = 2, 4
@@ -460,21 +530,27 @@ def main() -> int:
     log(f"msm_lanes [{name}: S={S}, N={Nm}]: {ms:.3f} ms, plain {plain:.1f} ms, bound {bms:.4f} ms ({by})")
 
     # ------------------------------------------- 5. the protocol path
-    kernels["fold_windows"] = fold_phase(dev, g, kernels)
-    gather_phase(dev, g)
+    kernels["fold_windows"].update(fold_phase(dev, g, kernels))
+    engine_ms = gather_phase(dev, g)
     arg_s, arg_launches = argument_phase(dev)
     kernels["fold_windows"]["launches"] = arg_launches["fold_windows"]
     round_s, round_launches = round_phase(dev)
     for k, v in round_launches.items():
         kernels[k]["launches_round"] = v
 
+    # --------------------------------------------- 6. the parameter sweep
+    sweep, sweep_launches = sweep_phase(dev, compared)
+    kernels["msm_chunked"]["launches_sweep"] = sweep_launches
+
     meta = {
         "mont_mul": ("mental_poker_tpu_torch/csrc/field.cu", "mental_poker_tpu/ops/pallas/field.py:128"),
         "point_add": ("mental_poker_tpu_torch/csrc/curve.cu", "mental_poker_tpu/ops/pallas/curve.py:94"),
         "fold_windows": ("mental_poker_tpu_torch/csrc/curve.cu", "mental_poker_tpu/ops/pallas/curve.py:146"),
         "msm_lanes": ("mental_poker_tpu_torch/csrc/msm.cu", "mental_poker_tpu/ops/pallas/msm.py:52"),
+        "msm_chunked": ("mental_poker_tpu_torch/csrc/msm_chunked.cu", "mental_poker_tpu/ops/pallas/msm.py:133"),
     }
-    extra = ("shape", "launches_b1", "launches_round", "ms_s128", "plain_ms_s128", "bound_ms_s128", "chain_ms")
+    extra = ("shape", "launches_b1", "launches_round", "launches_nc8", "launches_sweep", "ms_s128",
+             "plain_ms_s128", "bound_ms_s128", "chain_ms", "msm_lanes_nc1_ms", "msm_lanes_nc8_ms")
     rows = []
     for kname, (src, replaces) in meta.items():
         kv = kernels[kname]
@@ -485,13 +561,203 @@ def main() -> int:
             "library_ms": None, **{k: kv[k] for k in extra if k in kv},
         })
     log(json.dumps({"prove_verify": {f"B={B}": {"ms": pv_ms, "pairs_per_s": B / pv_ms * 1e3},
+                                     f"B={B}, msm_nc={NC}": {"ms": pv8_ms, "pairs_per_s": B / pv8_ms * 1e3},
                                      "B=1": {"ms": pv1_ms, "pairs_per_s": 1e3 / pv1_ms}},
-                    "shuffle_argument_2x26_s": arg_s, "round_2x26_4p_4s_s": round_s}))
+                    "shuffle_argument_2x26_s": arg_s, "round_2x26_4p_4s_s": round_s,
+                    "msm_s1_gather_vs_lanes_ms": engine_ms, "sweep_bls12_377_n300": sweep}))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0
+
+
+def chunked_statement(dev, cv, table, S, N, seed):
+    """S x N points k_i * B of a fixed base B and S x N scalars. At flat
+    positions 0, 1 and 2 of the scalars stand 0, 1 and q - 1, and the point
+    at flat position 3 is the identity, as far as S x N reaches; with N > 3 the last point of statement
+    0 is (0, 0, 0) with scalar 0 when N > 4, as the wide split pads a
+    statement."""
+    import numpy as np
+    import torch
+
+    from mental_poker_tpu_torch.ops.curve import map_point
+    from mental_poker_tpu_torch.utils.rand import GameRng, ints_to_limbs
+
+    q, Lk = cv.host.order, cv.fr.L
+    kk = torch.as_tensor(GameRng(seed).scalar_limbs(q, (S, N), Lk).astype(np.int32), device=dev)
+    edges = (kk.new_zeros(Lk), cv.fr.small_int_limbs(1, dev), cv.fr.tensor(ints_to_limbs([q - 1], Lk)[0], dev))
+    for pos, v in enumerate(edges[:S * N]):
+        kk.view(S * N, Lk)[pos] = v
+    pts = map_point(lambda t: t.clone(), table.mul(torch.as_tensor(
+        GameRng(seed + 1).scalar_limbs(q, (S, N), Lk).astype(np.int32), device=dev)))
+    if S * N > 3:
+        for t, v in zip(pts, cv.identity((), dev)):
+            t.view(S * N, -1)[3] = v
+    if N > 4:
+        kk[0, N - 1] = 0
+        for t in pts:
+            t[0, N - 1] = 0
+    return pts, kk
+
+
+def chunked_check(dev, cv, table, S, N, nc, seed, label, host_statements=2):
+    """`msm_chunked` against `msm_chunked_plain` at one shape, window sums
+    limb for limb, on `chunked_statement` inputs; the folded sums of the
+    first `host_statements` statements against host bigints. Returns the
+    shape's key (curve, S, N, points per step) and the inputs."""
+    import torch
+
+    from mental_poker_tpu_torch.ops.cuda import curve as cuda_curve
+    from mental_poker_tpu_torch.ops.cuda import msm as cuda_msm
+    from mental_poker_tpu_torch.ops.curve import PointP
+
+    P, k = chunked_statement(dev, cv, table, S, N, seed)
+    got = cuda_msm.msm_chunked(cv, P, k, nc)
+    want = cuda_msm.msm_chunked_plain(cv, P, k, nc)
+    torch.cuda.synchronize()
+    err = max_abs_err(got, want)
+    if err:
+        raise AssertionError(f"msm_chunked {label} [S={S}, N={N}, NC={nc}]: kernel differs from plain by {err}")
+    nh = min(host_statements, S)
+    if nh:
+        host = cv.to_host_points(PointP(*(t[:nh] for t in cuda_curve.fold_windows(cv, got, cuda_msm.WINDOW))))
+        hk = k[:nh].cpu().numpy()
+        for s in range(nh):
+            hp = cv.to_host_points(PointP(*(t[s] for t in P)))
+            acc = cv.host.identity
+            for i in range(N):
+                kint = sum(int(v) << (16 * j) for j, v in enumerate(hk[s, i]))
+                if kint:  # scalar 0 stands beside the (0, 0, 0) pad point
+                    acc = cv.host.add(acc, cv.host.mul(kint, hp[i]))
+            require(host[s] == acc, (label, s))
+    log(f"msm_chunked {label} [S={S}, N={N}, NC={min(nc, N)}]: window sums equal to plain"
+        + (f"; folds of {nh} statements agree with host bigints" if nh else ""))
+    return (cv.host.name, S, N, min(nc, N)), (P, k)
+
+
+def chunked_phase(dev, g, shapes) -> tuple:
+    """2d. `msm_chunked` against its plain version (`chunked_check`) at every
+    shape the main path gives it at `msm_nc = 8`: 2c's five shapes after the
+    wide split (`ops/msm.py::split_factor`), among them the prover diagonals
+    S = 1024, N = 52 (NB = 7 steps with 4 pad slots), the combos [1024, 26],
+    [896, 8], [256, 4] (NC = 4) and [256, 1] (NC = 1, no tree), and the B=1
+    verifier's combos; then Stark S = 3, N = 5, NC = 4 and two BLS12-377
+    shapes (S = 256, N = 10; S = 2, N = 19, which the sweep launches too;
+    `sweep_phase` compares the sweep's other shapes). Returns the kernel's
+    row, timed at the prover diagonals, and the set of shape keys compared."""
+    import math
+
+    from mental_poker_tpu_torch.ops.cuda import msm as cuda_msm
+    from mental_poker_tpu_torch.ops.curve import bls12_377_g1, stark_curve
+    from mental_poker_tpu_torch.ops.msm import FixedBaseTable, split_factor
+    from mental_poker_tpu_torch.utils.rand import GameRng
+
+    stark = stark_curve()
+    bls = bls12_377_g1()
+    bls_table = FixedBaseTable(bls, bls.host.rand_point(GameRng(9).rng), 4, dev)
+    cases = []
+    for name, S0, N0 in shapes:
+        F = split_factor(S0, N0, NC)
+        cases.append((f"Stark {name} at nc = {NC}", stark, g.enc.gen_table, S0 * F, -(-N0 // F), NC))
+    cases += [("Stark", stark, g.enc.gen_table, 3, 5, 4),
+              ("BLS12-377", bls, bls_table, 256, 10, NC),
+              ("BLS12-377", bls, bls_table, 2, 19, NC)]
+    compared, diagonals = set(), None
+    for i, (label, cv, table, S, N, nc) in enumerate(cases):
+        key, inputs = chunked_check(dev, cv, table, S, N, nc, 31 + 2 * i, label)
+        compared.add(key)
+        if label.startswith("Stark prover"):
+            diagonals = (cv, *inputs, nc)
+
+    cv, P, k, nc = diagonals
+    S, N = k.shape[0], k.shape[1]
+    L, Lk = cv.fq.L, cv.fr.L
+    W = cuda_msm.num_windows(cv)
+    NB = -(-N // nc)
+    ms = cuda_ms(lambda: cuda_msm.msm_chunked(cv, P, k, nc), 10, 2)
+    plain = cuda_ms(lambda: cuda_msm.msm_chunked_plain(cv, P, k, nc), 1, 0)
+    lanes1 = cuda_ms(lambda: cuda_msm.msm_lanes(cv, P, k, nc=1), 10, 2)
+    lanes8 = cuda_ms(lambda: cuda_msm.msm_lanes(cv, P, k, nc=nc), 10, 2)
+    # the additions the function needs: the multiples tables (14 per point),
+    # then one per point and window into the window sums; the pad slots'
+    # additions are the schedule's, not the function's
+    adds = S * N * ((1 << cuda_msm.WINDOW) - 2) + S * W * N
+    bms, by = bound(adds * ADD_PRODUCTS * word_products(L) * 2, (S * N * (3 * L + Lk) + W * S * 3 * L) * 4)
+    chain_adds = (1 << cuda_msm.WINDOW) - 2 + NB * (math.ceil(math.log2(nc)) + 1)
+    chain_ms = chain_adds * ADD_PRODUCTS * word_products(L) * 2 / SM_CLOCK_HZ * 1e3
+    log(f"msm_chunked [S={S}, N={N}, NC={nc}]: {ms:.3f} ms, plain {plain:.1f} ms, bound {bms:.4f} ms ({by}; "
+        f"{S * N * ((1 << cuda_msm.WINDOW) - 2)} table and {S * W * N} window additions); "
+        f"one window's chain of {chain_adds} additions at one IMAD per clock: {chain_ms:.4f} ms; "
+        f"msm_lanes at nc = 1 {lanes1:.3f} ms, at nc = {nc} (chunked + fold) {lanes8:.3f} ms")
+    row = dict(max_abs_err=0.0, ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by, chain_ms=chain_ms,
+               msm_lanes_nc1_ms=lanes1, msm_lanes_nc8_ms=lanes8,
+               shape=f"Stark prover diagonals: S={S}, N={N}, NC={nc}")
+    return row, compared
+
+
+@contextlib.contextmanager
+def chunked_shapes(seen: set):
+    """Record in `seen` the shape key (curve, S, N, points per step) of every
+    chunked-kernel launch made inside the block."""
+    from mental_poker_tpu_torch.ops.cuda import msm as cuda_msm
+
+    launch = cuda_msm.msm_chunked_cuda
+
+    def recording(cv, P, k, nc):
+        seen.add((cv.host.name, k.shape[0], k.shape[1], min(nc, k.shape[1])))
+        return launch(cv, P, k, nc)
+
+    cuda_msm.msm_chunked_cuda = recording
+    try:
+        yield seen
+    finally:
+        cuda_msm.msm_chunked_cuda = launch
+
+
+def sweep_phase(dev, compared: set):
+    """6. The reference's parameter sweep (`run_sweep`: N = 300 cards at the
+    five (m, n) splits of `REFERENCE_SWEEP`, BLS12-377 G1, seed 0) with
+    `msm_nc = 8`: each point proved and verified (`benchmark_parameters`
+    raises on a rejected proof), launch counts read around each point. Then
+    the chunked kernel against its plain version (`chunked_check`, the first
+    statement against host bigints) at every shape the sweep launched it at
+    that phase 2d did not compare. Returns (rows, chunked-kernel launches
+    over the sweep)."""
+    import torch
+
+    from mental_poker_tpu_torch import config
+    from mental_poker_tpu_torch.models import parameter_selection as ps
+    from mental_poker_tpu_torch.ops import cuda as cuda_ops
+    from mental_poker_tpu_torch.ops.curve import bls12_377_g1
+    from mental_poker_tpu_torch.ops.msm import FixedBaseTable
+    from mental_poker_tpu_torch.utils.rand import GameRng
+
+    rows, seen = [], set()
+    with config.override(msm_nc=NC), chunked_shapes(seen):
+        for m, n in ps.REFERENCE_SWEEP:
+            torch.cuda.synchronize()
+            cuda_ops.reset_launches()
+            t0 = time.perf_counter()
+            (row,) = ps.run_sweep([(m, n)], device=dev, verbose=False)
+            row["point_s"] = time.perf_counter() - t0
+            row["launches"] = dict(cuda_ops.LAUNCHES)
+            log(f"sweep BLS12-377 (m, n) = ({m}, {n}), N = {m * n}: prove {row['prove_s']:.3f} s, "
+                f"verify {row['verify_s']:.3f} s, {row['proof_bytes']} proof bytes, point {row['point_s']:.2f} s "
+                f"(setup and keys included); verified; launches {row['launches']}")
+            for k in CHUNKED_KERNELS:
+                if row["launches"][k] <= 0:
+                    raise AssertionError(f"the sweep point ({m}, {n}) did not launch kernel {k}")
+            if row["launches"]["msm_lanes"]:
+                raise AssertionError(f"the sweep point ({m}, {n}) launched the nc = 1 MSM kernel at msm_nc = {NC}")
+            rows.append(row)
+    bls = bls12_377_g1()
+    table = FixedBaseTable(bls, bls.host.rand_point(GameRng(9).rng), 4, dev)
+    log(f"sweep: the chunked kernel ran at {len(seen)} shapes, {len(seen - compared)} not compared in phase 2d")
+    for i, (curve, S, N, nc) in enumerate(sorted(seen - compared)):
+        require(curve == bls.host.name, curve)
+        chunked_check(dev, bls, table, S, N, nc, 101 + 2 * i, "BLS12-377 sweep", host_statements=1)
+    return rows, sum(r["launches"]["msm_chunked"] for r in rows)
 
 
 def fold_phase(dev, g, kernels, batches=(1, BATCH)) -> dict:
@@ -550,10 +816,12 @@ def fold_phase(dev, g, kernels, batches=(1, BATCH)) -> dict:
     return row
 
 
-def gather_phase(dev, g, sizes=(3, 4, 26, 52)) -> None:
+def gather_phase(dev, g, sizes=tuple(range(1, 16)) + (26, 52)) -> dict:
     """5b. The gather engine against the lane engine at one statement of N
     points: equal affine points, and the host sum (points a_i * G, so the
-    sum is (sum_i k_i a_i) * G). Times both engines at N = 4."""
+    sum is (sum_i k_i a_i) * G). Times both engines for every N below 16,
+    where the JAX rule (`ops/msm.py::use_lanes`) takes the gather engine;
+    returns {N: [gather ms, lanes ms]}."""
     import numpy as np
     import torch
 
@@ -563,14 +831,17 @@ def gather_phase(dev, g, sizes=(3, 4, 26, 52)) -> None:
 
     cv = stark_curve()
     q = cv.host.order
+    out = {}
     for N in sizes:
         r = GameRng(300 + N)
         a = r.scalar_limbs(q, (N,), cv.fr.L).astype(np.int32)
-        a[1] = 0  # an identity point
         k = r.scalar_limbs(q, (N,), cv.fr.L).astype(np.int32)
         k[0] = 0
-        k[2] = 0
-        k[2, 0] = 1
+        if N > 1:
+            a[1] = 0  # an identity point
+        if N > 2:
+            k[2] = 0
+            k[2, 0] = 1
         if N > 3:
             k[N - 1] = ints_to_limbs([q - 1], cv.fr.L)[0]
         pts = g.enc.gen_table.mul(torch.as_tensor(a, device=dev))
@@ -581,11 +852,17 @@ def gather_phase(dev, g, sizes=(3, 4, 26, 52)) -> None:
         total = sum(to_int(ai) * to_int(ki) for ai, ki in zip(a, k)) % q
         want = [cv.host.mul(total, g.generator)]
         require(cv.to_host_points(gathered) == cv.to_host_points(lanes) == want, ("gather vs lanes", N))
-        log(f"msm S=1 N={N}: gather engine equals lane engine; host bigints agree")
-        if N == 4:
+        if N < 16:
             gms = cuda_ms(lambda: msm_mod.msm(cv, pts, kt, engine="gather"), 10, 2)
             lms = cuda_ms(lambda: msm_mod.msm(cv, pts, kt, engine="lanes"), 10, 2)
-            log(f"msm S=1 N=4: gather engine {gms:.3f} ms, lane engine {lms:.3f} ms")
+            out[N] = [gms, lms]
+            log(f"msm S=1 N={N}: gather engine equals lane engine; host bigints agree; "
+                f"gather {gms:.3f} ms, lanes {lms:.3f} ms")
+        else:
+            log(f"msm S=1 N={N}: gather engine equals lane engine; host bigints agree")
+    wins = [N for N, (gms, lms) in out.items() if gms < lms]
+    log(f"msm S=1, N < 16: the gather engine is the faster at N = {wins or 'none'}")
+    return out
 
 
 def argument_phase(dev, m=2, n=26):

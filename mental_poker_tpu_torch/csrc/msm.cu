@@ -8,7 +8,8 @@
 // (the JAX default), so the table size T = 16 and W (63 for Stark scalars,
 // 64 for BLS12-377 ones) are compile-time constants:
 //
-//   msm_table_kernel        one thread per (statement, point): the multiples
+//   msm_table_kernel        (msm_table.cuh, shared with msm_chunked.cu) one
+//                           thread per (statement, point): the multiples
 //                           table t*P for t < T (T - 2 additions), in
 //                           device memory as packed 32-bit words;
 //   msm_window_fold_kernel  one block of W threads per statement, one thread
@@ -26,67 +27,7 @@
 // of. Device memory sees the points and scalars once, the tables (written
 // once and read by every window thread of their statement, mostly from L2)
 // and the outputs once.
-#include "mont.cuh"
-
-constexpr int kC = 4;         // window bits
-constexpr int kT = 1 << kC;  // multiples per point
-
-template <int NW>
-__device__ __forceinline__ void load_words(const uint32_t* __restrict__ src, uint32_t (&w)[NW]) {
-  const uint4* s = reinterpret_cast<const uint4*>(src);
-#pragma unroll
-  for (int q = 0; q < NW / 4; ++q) {
-    uint4 v = s[q];
-    w[4 * q] = v.x;
-    w[4 * q + 1] = v.y;
-    w[4 * q + 2] = v.z;
-    w[4 * q + 3] = v.w;
-  }
-}
-
-template <int NW>
-__device__ __forceinline__ void store_words(uint32_t* __restrict__ dst, const uint32_t (&w)[NW]) {
-  uint4* d = reinterpret_cast<uint4*>(dst);
-#pragma unroll
-  for (int q = 0; q < NW / 4; ++q) d[q] = make_uint4(w[4 * q], w[4 * q + 1], w[4 * q + 2], w[4 * q + 3]);
-}
-
-template <int NW>
-__device__ __forceinline__ void load_pt(const uint32_t* src, Pt<NW>& P) {
-  load_words<NW>(src, P.x);
-  load_words<NW>(src + NW, P.y);
-  load_words<NW>(src + 2 * NW, P.z);
-}
-
-template <int NW>
-__device__ __forceinline__ void store_pt(uint32_t* dst, const Pt<NW>& P) {
-  store_words<NW>(dst, P.x);
-  store_words<NW>(dst + NW, P.y);
-  store_words<NW>(dst + 2 * NW, P.z);
-}
-
-// tbl[(sn * T + t) * 3NW ...] = t * P[sn]: entry 0 the identity, entry 1 the
-// point itself, entry t = entry (t - 1) + P.
-template <int NW>
-__global__ void msm_table_kernel(const uint32_t* __restrict__ px, const uint32_t* __restrict__ py,
-                                 const uint32_t* __restrict__ pz, uint32_t* __restrict__ tbl,
-                                 long long sn_count, CurveConsts<NW> C) {
-  const long long sn = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (sn >= sn_count) return;
-  Pt<NW> P, acc;
-  load_elem<NW>(px + sn * 2 * NW, P.x);
-  load_elem<NW>(py + sn * 2 * NW, P.y);
-  load_elem<NW>(pz + sn * 2 * NW, P.z);
-  uint32_t* out = tbl + sn * kT * 3 * NW;
-  set_identity<NW>(acc, C);
-  store_pt<NW>(out, acc);
-  store_pt<NW>(out + 3 * NW, P);
-  acc = P;
-  for (int t = 2; t < kT; ++t) {
-    point_add<NW>(acc, acc, P, C);
-    store_pt<NW>(out + t * 3 * NW, acc);
-  }
-}
+#include "msm_table.cuh"
 
 // Block s, thread w: S_w = sum_i tbl[s, i, digit_w(k[s, i])], starting from
 // the identity and adding in point order. Thread 0 then folds.
@@ -127,12 +68,7 @@ static int launch(const void* px, const void* py, const void* pz, const void* k,
                   void* ox, void* oy, void* oz, long long S, int N, const uint32_t* consts,
                   cudaStream_t stream) {
   const CurveConsts<NW> C = curve_consts<NW>(consts);
-  const long long sn = S * (long long)N;
-  const int threads = 128;
-  msm_table_kernel<NW><<<(unsigned)((sn + threads - 1) / threads), threads, 0, stream>>>(
-      static_cast<const uint32_t*>(px), static_cast<const uint32_t*>(py),
-      static_cast<const uint32_t*>(pz), static_cast<uint32_t*>(tbl), sn, C);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = launch_tables<NW>(px, py, pz, tbl, S * (long long)N, C, stream);
   if (err != cudaSuccess) return (int)err;
   msm_window_fold_kernel<NW, W><<<(unsigned)S, W, 0, stream>>>(
       static_cast<const uint32_t*>(tbl), static_cast<const uint32_t*>(k), Lk, N,

@@ -6,7 +6,9 @@ Each module holds one kernel's wrapper beside its plain PyTorch version:
 - `curve.py`: complete point addition (replaces `ops/pallas/curve.py::_add_kernel`)
   and the window fold of the gather MSM engine (replaces
   `ops/pallas/curve.py::_fold_kernel`);
-- `msm.py`: per-statement MSM (replaces `ops/pallas/msm.py::_msm_kernel`).
+- `msm.py`: per-statement MSM (replaces `ops/pallas/msm.py::_msm_kernel`)
+  and its chunked form, NC points per step with the window sums out
+  (replaces `ops/pallas/msm.py::_msm_kernel_chunked`).
 
 The CUDA C++ sources are in `mental_poker_tpu_torch/csrc/`; `build.py`
 compiles them with nvcc for sm_90a at first use and binds them with ctypes.
@@ -16,7 +18,7 @@ card (plain-version calls on CPU tensors do not count). Callers that want
 the count of one run set the entries to 0 first.
 """
 
-LAUNCHES = {"mont_mul": 0, "point_add": 0, "msm_lanes": 0, "fold_windows": 0}
+LAUNCHES = {"mont_mul": 0, "point_add": 0, "msm_lanes": 0, "fold_windows": 0, "msm_chunked": 0}
 
 
 def reset_launches() -> None:

@@ -22,8 +22,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("field.cu", "curve.cu", "msm.cu")
-HEADERS = ("mont.cuh",)
+SOURCES = ("field.cu", "curve.cu", "msm.cu", "msm_chunked.cu")
+HEADERS = ("mont.cuh", "msm_table.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

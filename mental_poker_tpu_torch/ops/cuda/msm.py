@@ -23,6 +23,31 @@ Source: `csrc/msm.cu` with the shared routines of `csrc/mont.cuh`.
 The plain version runs the same schedule (table entries t*P = (t-1)*P + P,
 window sums in point order from the identity, MSB-first fold), so the two
 agree limb for limb on the projective result.
+
+The chunked kernel (`msm_chunked`, source `csrc/msm_chunked.cu`) replaces
+`mental_poker_tpu/ops/pallas/msm.py::_msm_kernel_chunked` in its `emit` mode
+(builder `_build_msm_chunked`, adapter `_kern_drop_fld`), reached through
+`msm_lanes` when `config.msm_nc` (`MPTPU_MSM_NC`) is above 1:
+
+- What it computes: the W window sums of each statement, NC points per
+  sequential step (NC = min(nc, N), NB = ceil(N / NC) steps): the NC points'
+  table entries by digit, a pairwise tree over them (left to right, an odd
+  element carried up), one accumulate per step. `msm_lanes` folds the sums
+  with the fold kernel (`ops/cuda/curve.py::fold_windows`).
+- What bounds it on the H100: integer multiply-adds, 14 table additions per
+  point and NB * NC additions per window; one window's dependent chain is NB
+  steps of ceil(log2 NC) + 1 additions instead of N.
+- What the design does about it: the tables are built by `msm.cu`'s table
+  kernel (`csrc/msm_table.cuh`); then one thread per (statement, window,
+  chunk slot), 128 / NC windows of one statement to a block, runs the tree
+  through shared memory. The window sums go out, so the fold chain runs once
+  per statement in the fold kernel.
+
+`msm_chunked_plain` runs the TPU schedule (identity window sums, identity for
+digit 0 and for the pad slots past N, the same tree pairing, one accumulate
+per chunk), batched over all chunks at once, so the kernel, the plain version
+and the JAX kernel agree limb for limb on the window sums and, folded, on
+the projective result.
 """
 
 from __future__ import annotations
@@ -31,14 +56,19 @@ import ctypes
 
 import torch
 
+from ...config import get_config
 from . import LAUNCHES, build
-from .curve import curve_words, fold_windows_plain, point_add_plain
+from .curve import curve_words, fold_windows, fold_windows_plain, point_add_plain
 from .field import _check
 
 _ARGS = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_void_p] * 4
          + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
 
-WINDOW = 4  # window bits; csrc/msm.cu's kC
+_CHUNKED_ARGS = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_void_p] * 4
+                 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
+
+WINDOW = 4  # window bits; csrc/msm_table.cuh's kC
+CHUNK_MAX = 8  # the most points per step the chunked kernel takes; csrc/msm_chunked.cu's kMaxNC
 
 
 def num_windows(cv) -> int:
@@ -55,23 +85,27 @@ def digits(k: torch.Tensor, c: int, W: int) -> torch.Tensor:
     return (limb >> ((w % per) * c)) & ((1 << c) - 1)
 
 
+def _multiples(cv, P):
+    """Multiples tables t*P for t < 2^WINDOW, one per coordinate [S, N, T, L]:
+    entry 0 the identity, entry t = entry (t - 1) + P."""
+    px, py, pz = P
+    entries = [cv.identity_like(px), (px, py, pz)]
+    for _ in range((1 << WINDOW) - 2):
+        entries.append(point_add_plain(cv, entries[-1], (px, py, pz)))
+    return [torch.stack([e[j] for e in entries], dim=2) for j in range(3)]
+
+
 def msm_lanes_plain(cv, P, k: torch.Tensor):
     """Plain PyTorch version of the kernel's schedule (any device).
     P: (x, y, z) coordinates [S, N, L]; k: canonical limbs [S, N, Lk]."""
-    px, py, pz = P
+    px = P[0]
     S, N, L = px.shape
     if N == 0:
         return cv.identity_like(px.new_zeros((S, L)))
     c = WINDOW
     W = num_windows(cv)
-    T = 1 << c
     add = lambda A, B: point_add_plain(cv, A, B)
-    # multiples tables [S, N, T, L] per coordinate
-    ident = cv.identity_like(px)
-    entries = [ident, (px, py, pz)]
-    for _ in range(T - 2):
-        entries.append(add(entries[-1], (px, py, pz)))
-    tbl = [torch.stack([e[j] for e in entries], dim=2) for j in range(3)]
+    tbl = _multiples(cv, P)
     d = digits(k, c, W).long()  # [S, N, W]
     acc = cv.identity_like(px.new_zeros((S, W, L)))
     for i in range(N):
@@ -114,10 +148,91 @@ def msm_lanes_cuda(cv, P, k: torch.Tensor):
     return tuple(out)
 
 
-def msm_lanes(cv, P, k: torch.Tensor):
-    """sum_i k[s, i] * P[s, i] per statement s, as an (x, y, z) tuple of
-    [S, L] tensors. CPU tensors take the plain version; CUDA tensors take
+def msm_chunked_plain(cv, P, k: torch.Tensor, nc: int):
+    """Plain PyTorch version of the chunked kernel's schedule (any device):
+    the window sums (x, y, z) [W, S, L]. P: coordinates [S, N, L]; k:
+    canonical limbs [S, N, Lk]. Each step's additions are batched over all
+    chunks; their operands and order are the kernel's."""
+    px = P[0]
+    S, N, L = px.shape
+    W = num_windows(cv)
+    if N == 0:
+        return tuple(cv.identity_like(px.new_zeros((W, S, L))))
+    NC = min(nc, N)
+    NB = -(-N // NC)
+    add = lambda A, B: point_add_plain(cv, A, B)
+    tbl = _multiples(cv, P)
+    idx = digits(k, WINDOW, W).long()[..., None].expand(S, N, W, L)
+    sel = [torch.gather(t, 2, idx) for t in tbl]  # [S, N, W, L]; digit 0 picks the identity
+    pad = cv.identity_like(px.new_zeros((S, NB * NC - N, W, L)))  # pad slots: the identity
+    slots = [torch.cat([t, q], 1).reshape(S, NB, NC, W, L).unbind(2) for t, q in zip(sel, pad)]
+    items = list(zip(*slots))  # NC slots of (x, y, z) [S, NB, W, L]
+    while len(items) > 1:  # pairwise tree, left to right, an odd element carried up
+        pairs = len(items) // 2
+        left = [torch.stack([items[2 * i][j] for i in range(pairs)]) for j in range(3)]
+        right = [torch.stack([items[2 * i + 1][j] for i in range(pairs)]) for j in range(3)]
+        summed = list(zip(*(t.unbind(0) for t in add(left, right))))
+        items = summed + items[2 * pairs:]
+    root = items[0]
+    acc = cv.identity_like(px.new_zeros((S, W, L)))
+    for j in range(NB):
+        acc = add(acc, tuple(t[:, j] for t in root))
+    return tuple(a.movedim(1, 0).contiguous() for a in acc)
+
+
+def msm_chunked_cuda(cv, P, k: torch.Tensor, nc: int):
+    """Launch the chunked kernel on CUDA tensors: P coordinates [S, N, L]
+    and k [S, N, Lk], all contiguous int32. Returns the window sums
+    (x, y, z) [W, S, L]."""
+    px = P[0]
+    if px.device.type != "cuda":
+        raise ValueError("msm_chunked_cuda: inputs must be CUDA tensors")
+    if px.dim() != 3 or k.dim() != 3 or k.shape[:2] != px.shape[:2]:
+        raise ValueError(f"msm_chunked_cuda: points {tuple(px.shape)} and scalars {tuple(k.shape)}")
+    L, Lk = cv.fq.L, cv.fr.L
+    for t in P:
+        if t.shape != px.shape:
+            raise ValueError("msm_chunked_cuda: coordinate shapes differ")
+        _check(t, L, px.device, "msm_chunked")
+    _check(k, Lk, px.device, "msm_chunked")
+    S, N = px.shape[0], px.shape[1]
+    W = num_windows(cv)
+    if not 1 <= nc <= CHUNK_MAX:
+        raise ValueError(f"msm_chunked_cuda: the kernel takes 1 to {CHUNK_MAX} points per step, got nc={nc}")
+    if S == 0 or N == 0:
+        return tuple(cv.identity_like(px.new_zeros((W, S, L))))
+    out = [px.new_empty((W, S, L)) for _ in range(3)]
+    tbl = torch.empty(S * N * (1 << WINDOW) * 3 * (L // 2), dtype=torch.int32, device=px.device)
+    fn = build.function("msm_chunked.cu", "mp_msm_chunked", _CHUNKED_ARGS)
+    stream = torch.cuda.current_stream(px.device).cuda_stream
+    build.check(
+        fn(L, W, *(t.data_ptr() for t in P), k.data_ptr(), Lk, tbl.data_ptr(),
+           *(o.data_ptr() for o in out), S, N, min(nc, N), curve_words(cv).ctypes.data, stream),
+        "msm_chunked",
+    )
+    LAUNCHES["msm_chunked"] += 1
+    return tuple(out)
+
+
+def msm_chunked(cv, P, k: torch.Tensor, nc: int):
+    """The window sums (x, y, z) [W, S, L] of sum_i k[s, i] * P[s, i], nc
+    points per step. CPU tensors take the plain version; CUDA tensors take
     the kernel."""
+    if all(t.device.type == "cpu" for t in (*P, k)):
+        return msm_chunked_plain(cv, P, k, nc)
+    return msm_chunked_cuda(cv, tuple(t.contiguous() for t in P), k.contiguous(), nc)
+
+
+def msm_lanes(cv, P, k: torch.Tensor, nc: int | None = None):
+    """sum_i k[s, i] * P[s, i] per statement s, as an (x, y, z) tuple of
+    [S, L] tensors. `nc` (default `config.get_config().msm_nc`) points per
+    sequential step: 1 runs the per-statement kernel, above 1 the chunked
+    kernel's window sums folded by the fold kernel (the TPU's
+    `_msm_kernel_chunked`, whose emit mode `_kern_drop_fld` serves). CPU
+    tensors take the plain versions; CUDA tensors take the kernels."""
+    nc = get_config().msm_nc if nc is None else nc
+    if nc > 1:
+        return fold_windows(cv, msm_chunked(cv, P, k, nc), WINDOW)
     if all(t.device.type == "cpu" for t in (*P, k)):
         return msm_lanes_plain(cv, P, k)
     return msm_lanes_cuda(cv, tuple(t.contiguous() for t in P), k.contiguous())

@@ -2,15 +2,17 @@
 
 - Variable-base MSM (`msm`), two engines chosen by the JAX package's rule:
   the per-statement kernel (`ops/cuda/msm.py`, the Hopper twin of the TPU
-  lane kernel), after the wide-split mapping spreads the points of
-  few-statement calls over several statements; and, for one statement of
+  lane kernel, or its chunked form when `config.msm_nc` > 1), after the
+  wide-split mapping spreads the points of few-statement calls over several
+  statements; and, for one statement of
   fewer than 16 points, the gather engine (`msm_gather`), which ends in the
   window-fold kernel (`ops/cuda/curve.py::fold_windows`).
 - Fixed-base multiply/MSM (`FixedBaseTable`, `FixedBaseMSM`): full window
   tables T[w][d] = d * 2^(c w) * B built once per base, so a multiply is a
   gather of W entries and a tree sum (W - 1 additions, no doublings). The
-  window width c is a constructor argument (8 for the benchmark shape, 4 in
-  the CPU tests).
+  window width c is a constructor argument (8 for the benchmark shape; None
+  takes `config.fixed_window_bits`, 4 unless `MPTPU_FIXED_WINDOW` says
+  otherwise).
 
 Scalars enter in canonical (non-Montgomery) limb form, int32 [..., Lk].
 """
@@ -19,16 +21,19 @@ from __future__ import annotations
 
 import torch
 
+from ..config import get_config, window_bits
 from .cuda import curve as cuda_curve
 from .cuda import msm as cuda_msm
 from .curve import Curve, PointP, map_point, stack_points
 
 # Wide-split mapping: a call with S statements of N points is re-cut into
 # S*F statements of ceil(N/F) points (F a power of two) while S*F stays at
-# most SPLIT_TARGET statements and every part keeps at least SPLIT_MIN_POINTS
-# points. The kernel runs one 64-thread block per statement, so this keeps
-# narrow calls (the verifier's few-point combos at small batches) from
-# leaving the card idle while one block walks all N points.
+# most SPLIT_TARGET statements and every part keeps at least
+# max(nc, SPLIT_MIN_POINTS) points (nc: `config.msm_nc`, the chunked kernel's
+# points per step; the JAX package's max(nc, 8)). The kernel runs one 64-thread
+# block per statement, so this keeps narrow calls (the verifier's few-point
+# combos at small batches) from leaving the card idle while one block walks
+# all N points.
 SPLIT_TARGET = 1024
 SPLIT_MIN_POINTS = 8
 
@@ -39,9 +44,9 @@ def scalar_digits(k: torch.Tensor, c: int, nbits: int) -> torch.Tensor:
     return cuda_msm.digits(k, c, W).movedim(-1, 0)
 
 
-def split_factor(S: int, N: int) -> int:
+def split_factor(S: int, N: int, nc: int = 1) -> int:
     F = 1
-    while S * F * 2 <= SPLIT_TARGET and N >= 2 * F * SPLIT_MIN_POINTS:
+    while S * F * 2 <= SPLIT_TARGET and N >= 2 * F * max(nc, SPLIT_MIN_POINTS):
         F *= 2
     return F
 
@@ -81,7 +86,8 @@ def msm(cv: Curve, points: PointP, scalars: torch.Tensor, engine: str | None = N
     if engine == "gather" or (engine is None and not use_lanes(S, N)):
         out = msm_gather(cv, P, k)
         return map_point(lambda q: q.reshape(batch + (L,)), out)
-    F = split_factor(S, N)
+    nc = get_config().msm_nc
+    F = split_factor(S, N, nc)
     if F > 1:
         Nf = -(-N // F)
         padn = Nf * F - N
@@ -90,7 +96,7 @@ def msm(cv: Curve, points: PointP, scalars: torch.Tensor, engine: str | None = N
             P = map_point(lambda q: torch.cat([q, q.new_zeros((S, padn, L))], 1), P)
         k = k.reshape(S * F, Nf, Lk)
         P = map_point(lambda q: q.reshape(S * F, Nf, L), P)
-    out = PointP(*cuda_msm.msm_lanes(cv, P, k))
+    out = PointP(*cuda_msm.msm_lanes(cv, P, k, nc))
     if F > 1:
         out = cv.sum_points(map_point(lambda q: q.reshape(S, F, L), out), axis=1)
     return map_point(lambda q: q.reshape(batch + (L,)), out)
@@ -163,14 +169,14 @@ def fixed_msm(cv: Curve, table: PointP, scalars: torch.Tensor) -> PointP:
 class FixedBaseTable:
     """Window table of one fixed base; `table`: PointP [W, 2^c, L]."""
 
-    def __init__(self, cv: Curve, host_point, c: int = 4, device="cuda", table: PointP | None = None):
+    def __init__(self, cv: Curve, host_point, c: int | None = None, device="cuda", table: PointP | None = None):
         self.cv = cv
-        self.c = c
         if table is None:
             table = map_point(
                 lambda q: q[0],
-                build_window_tables(cv, cv.from_host_points([host_point], device), c),
+                build_window_tables(cv, cv.from_host_points([host_point], device), window_bits(c)),
             )
+        self.c = _window_bits(table)
         self.table = table
 
     def mul(self, scalars: torch.Tensor) -> PointP:
@@ -182,11 +188,11 @@ class FixedBaseMSM:
     """Window tables of a vector of fixed bases (e.g. a Pedersen commit key);
     `table`: PointP [n, W, 2^c, L]."""
 
-    def __init__(self, cv: Curve, host_points, c: int = 4, device="cuda", table: PointP | None = None):
+    def __init__(self, cv: Curve, host_points, c: int | None = None, device="cuda", table: PointP | None = None):
         self.cv = cv
-        self.c = c
         if table is None:
-            table = build_window_tables(cv, cv.from_host_points(list(host_points), device), c)
+            table = build_window_tables(cv, cv.from_host_points(list(host_points), device), window_bits(c))
+        self.c = _window_bits(table)
         self.table = table
 
     def msm(self, scalars: torch.Tensor) -> PointP:

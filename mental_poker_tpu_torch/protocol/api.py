@@ -35,6 +35,7 @@ import abc
 from typing import Any, Sequence
 
 from ..arguments import shuffle as shuffle_arg
+from ..config import window_bits
 from ..crypto import elgamal, pedersen, sigma
 from ..crypto.elgamal import Ciphertexts
 from ..crypto.transcript import TranscriptBatch
@@ -82,8 +83,8 @@ class ElGamalScheme(HomomorphicEncryptionScheme):
     """ElGamal over a short-Weierstrass curve (E3, crypto/elgamal.py), with
     c-bit generator tables on `device`."""
 
-    def __init__(self, c: int = 4, device="cuda"):
-        self.c = c
+    def __init__(self, c: int | None = None, device="cuda"):
+        self.c = window_bits(c)
         self.device = device
 
     def setup(self, cv: Curve, rng: GameRng):
@@ -121,8 +122,8 @@ class PedersenScheme(HomomorphicCommitmentScheme):
     """Vector Pedersen commitments (E4, crypto/pedersen.py), with c-bit key
     tables on `device`."""
 
-    def __init__(self, c: int = 4, device="cuda"):
-        self.c = c
+    def __init__(self, c: int | None = None, device="cuda"):
+        self.c = window_bits(c)
         self.device = device
 
     def setup(self, cv: Curve, rng: GameRng, n: int):

@@ -32,6 +32,7 @@ import torch
 
 from ..arguments import device_api
 from ..arguments.device import ShuffleProofDev
+from ..config import window_bits
 from ..crypto import elgamal, sigma
 from ..crypto.elgamal import Ciphertexts
 from ..crypto.errors import CardProtocolError, CryptoError
@@ -95,11 +96,12 @@ class DLCards(api.BarnettSmartProtocol, api.Mask, api.Remask, api.Reveal):
 
     Associated-type bindings (`mod.rs:87-103`): Enc = ElGamalScheme,
     Comm = PedersenScheme. `c` is the fixed-base window width of every
-    table; every tensor lives on `device`."""
+    table (None: `config.get_config().fixed_window_bits`, as the JAX
+    package's `default_fixed_window`); every tensor lives on `device`."""
 
-    def __init__(self, cv=None, enc_scheme=None, comm_scheme=None, c: int = 4, device="cuda"):
+    def __init__(self, cv=None, enc_scheme=None, comm_scheme=None, c: int | None = None, device="cuda"):
         self.cv = cv or curve_mod.stark_curve()
-        self.c = c
+        self.c = c = window_bits(c)
         self.device = torch.device(device)
         self.enc_scheme = enc_scheme or api.ElGamalScheme(c, self.device)
         self.comm_scheme = comm_scheme or api.PedersenScheme(c, self.device)

@@ -1,0 +1,66 @@
+"""The port's runtime config (`mental_poker_tpu_torch/config.py`), as
+`tests/test_config.py` holds the JAX package's: environment backing under
+the same `MPTPU_*` names, `override`, a frozen config, and the knobs'
+consumers reading the config."""
+
+import dataclasses
+
+import pytest
+
+from mental_poker_tpu import config as jconfig
+from mental_poker_tpu_torch import config
+from mental_poker_tpu_torch.config import RuntimeConfig, get_config, override, set_config
+
+
+def test_env_backing(monkeypatch):
+    monkeypatch.setenv("MPTPU_FIXED_WINDOW", "8")
+    monkeypatch.setenv("MPTPU_MSM_NC", "4")
+    set_config(None)  # force a re-read
+    try:
+        cfg = get_config()
+        assert cfg.fixed_window_bits == 8
+        assert cfg.msm_nc == 4
+    finally:
+        set_config(None)
+
+
+def test_defaults_match_jax(monkeypatch):
+    monkeypatch.delenv("MPTPU_FIXED_WINDOW", raising=False)
+    monkeypatch.delenv("MPTPU_MSM_NC", raising=False)
+    cfg = RuntimeConfig.from_env()
+    assert cfg.fixed_window_bits == jconfig.RuntimeConfig.from_env().fixed_window_bits == 4
+    assert cfg.msm_nc == 1  # the JAX package's DEFAULT_NC without MPTPU_MSM_NC
+
+
+def test_override_context():
+    base = get_config()
+    with override(msm_nc=8) as cfg:
+        assert cfg.msm_nc == 8
+        assert get_config().msm_nc == 8
+    assert get_config().msm_nc == base.msm_nc
+
+
+def test_frozen():
+    with pytest.raises(dataclasses.FrozenInstanceError):
+        get_config().msm_nc = 9  # type: ignore[misc]
+
+
+def test_knob_consumers_route_through_config(monkeypatch):
+    from mental_poker_tpu_torch.ops import msm as tmsm
+    from mental_poker_tpu_torch.ops.cuda import msm as cuda_msm
+    from mental_poker_tpu_torch.protocol.dl_cards import DLCards
+
+    with override(fixed_window_bits=6):
+        assert config.window_bits(None) == 6
+        assert config.window_bits(4) == 4
+        assert DLCards(device="cpu").c == 6
+    assert DLCards(device="cpu", c=8).c == 8
+    # msm_nc: the split rule and the engine under msm_lanes
+    assert tmsm.split_factor(1, 20) == 2
+    assert tmsm.split_factor(1, 20, nc=16) == 1  # N >= 2 F max(nc, 8) fails at F = 1
+    seen = []
+    monkeypatch.setattr(cuda_msm, "msm_chunked", lambda cv, P, k, nc: seen.append(nc) or (None,) * 3)
+    monkeypatch.setattr(cuda_msm, "fold_windows", lambda cv, S, c: S)
+    with override(msm_nc=4):
+        cuda_msm.msm_lanes(None, (None,) * 3, None)
+    assert seen == [4]

@@ -17,7 +17,7 @@ from mental_poker_tpu_torch.ops.cuda import curve as cuda_curve
 from mental_poker_tpu_torch.ops.cuda import field as cuda_field
 from mental_poker_tpu_torch.ops.cuda import msm as cuda_msm
 from mental_poker_tpu_torch.ops.curve import PointP, bls12_377_g1, stark_curve
-from mental_poker_tpu_torch.utils.rand import GameRng
+from mental_poker_tpu_torch.utils.rand import GameRng, ints_to_limbs
 
 pytestmark = pytest.mark.cuda
 
@@ -72,3 +72,24 @@ def test_fold_windows_kernel_equals_plain(dev, curve):
     assert all(torch.equal(g, w) for g, w in zip(got, want))
     with pytest.raises(ValueError):
         cuda_curve.fold_windows(cv, PointP(*(t[:5] for t in S)), cuda_curve.FOLD_WINDOW)  # W not built in
+
+
+@pytest.mark.parametrize("curve,S,N,nc", [(stark_curve, 64, 52, 8), (stark_curve, 3, 5, 4), (bls12_377_g1, 16, 10, 8)])
+def test_msm_chunked_kernel_equals_plain(dev, curve, S, N, nc):
+    """The window sums, limb for limb, with N % NC != 0 (pad slots), the
+    scalars 0, 1 and q - 1 and an identity point among the inputs."""
+    cv = curve()
+    P = PointP(*(t.reshape(S, N, -1).clone() for t in _points(cv, S * N, 6, dev)))
+    q = cv.host.order
+    k = torch.as_tensor(GameRng(7).scalar_limbs(q, (S, N), cv.fr.L).astype(np.int32), device=dev)
+    k[0, 0] = 0
+    k[0, 1] = cv.fr.small_int_limbs(1, dev)
+    k[1, 2] = torch.as_tensor(ints_to_limbs([q - 1], cv.fr.L)[0].astype(np.int32), device=dev)
+    for t, v in zip(P, cv.identity((), dev)):
+        t[1, 0] = v
+    got = cuda_msm.msm_chunked(cv, P, k, nc)
+    want = cuda_msm.msm_chunked_plain(cv, P, k, nc)
+    assert got[0].shape == (cuda_msm.num_windows(cv), S, cv.fq.L)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    with pytest.raises(ValueError):
+        cuda_msm.msm_chunked(cv, P, k, cuda_msm.CHUNK_MAX + 1)  # above the kernel's built-in maximum
