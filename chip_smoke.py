@@ -11,7 +11,11 @@ Phases (every failure exits non-zero; nothing is caught and ignored):
 1. Build: every CUDA kernel from `mental_poker_tpu_torch/csrc/`, one nvcc
    per source, all at once.
 2. Each kernel against its plain PyTorch version on the card, at the main
-   path's shapes, limb for limb, plus a few results against host bigints.
+   path's shapes, limb for limb, plus a few results against host bigints;
+   the lane-MSM kernel also at the edges of its thread mapping on both
+   curves (S = 1, 2, 3, 31, 32, 33 and 1,000 statements of 3 points, and
+   one statement of one point), first and last statements against host
+   bigints.
 3. The main path: a B=128 batch of 52-card decks on the Stark curve at
    (m, n) = (2, 26), permuted and remasked, proved and verified; then B=1;
    then a tampered deck, which must fail with "Hadamard Product (5.1)".
@@ -19,9 +23,15 @@ Phases (every failure exits non-zero; nothing is caught and ignored):
    on the card must equal the same proof made on the CPU by the plain
    versions, leaf for leaf.
 4. Times: prove+verify at B=128 and B=1, and each kernel at its main-path
-   shape beside its plain version and its bound.
+   shape beside its plain version and its bound; the lane-MSM kernel at
+   each of its five main-path shapes and at one statement of one point.
+   With `--profile DIR`, one B=128 prove+verify at `msm_nc = 1` is traced
+   and each kernel's device time, summed over its launches, goes into its
+   row (`device_ms_b128`).
 5. The protocol path (second slice): the window-fold kernel against its
-   plain version (Stark W = 63 and BLS12-377 W = 64, S = 1 and 128); the
+   plain version (Stark W = 63 and BLS12-377 W = 64, S = 1, 2, 3, 4, 5, 31,
+   32, 33, 128 and 1,000: the edges of its four-statement blocks; first and
+   last statements against host bigints); the
    gather engine against the lane engine at one statement of 3, 4, 26 and 52
    points; the host Bayer-Groth `ShuffleArgument` proving and verifying a
    52-card deck at (2, 26) with a statement from the port's `DLCards`,
@@ -78,9 +88,14 @@ SM_CLOCK_HZ = None  # the card's maximum SM clock, set by main(); a dependent
 # Montgomery products of the cheapest complete formulas (Renes-Costello-
 # Batina 2015) on the Stark curve, where a = 1 makes the products by a free:
 # an addition (Alg. 1) 12 + 2 by 3b, a doubling (Alg. 3) 8 + 3 squares + 2
-# by 3b. The kernels run Alg. 1 for both, with the products by a: 17 each.
+# by 3b. The kernels run Alg. 1 for both, with the products by a
+# specialised away (a = 1 on Stark, a = 0 on BLS12-377): 14 each.
 ADD_PRODUCTS = 14
 DBL_PRODUCTS = 13
+# Products on the critical path of one point operation when a lane group
+# spreads each of Alg. 1's three layers of independent products over its
+# lanes (csrc/fold.cuh): one product per layer.
+GROUP_CHAIN_PRODUCTS = 3
 
 STAGED_KERNELS = ("mont_mul", "point_add", "msm_lanes")  # the staged flow's kernels at nc = 1
 CHUNKED_KERNELS = ("mont_mul", "point_add", "msm_chunked", "fold_windows")  # ... and at nc = 8
@@ -145,6 +160,56 @@ def cuda_ms(fn, reps: int, warm: int = 1) -> float:
         times.append(a.elapsed_time(b))
     times.sort()
     return times[len(times) // 2]
+
+
+# Device-side kernel names (csrc/) of each wrapper's launches: msm_lanes at
+# nc = 1 launches the table kernel and the window/fold kernel.
+KERNEL_FUNCTIONS = {
+    "mont_mul": ("mont_mul_kernel",),
+    "point_add": ("point_add_kernel",),
+    "msm_lanes": ("msm_table_kernel", "msm_window_fold_kernel"),
+    "fold_windows": ("fold_windows_kernel",),
+    "msm_chunked": ("msm_chunked_window_kernel",),
+}
+
+
+def _device_ms(averages, names) -> float:
+    """Device time (ms) of the profiled kernels whose names contain one of
+    `names` (all device work for None), from key_averages()."""
+    from torch.autograd import DeviceType
+
+    total = 0.0
+    for ev in averages:
+        if ev.device_type == DeviceType.CUDA and (names is None or any(n in ev.key for n in names)):
+            us = getattr(ev, "self_device_time_total", None)
+            total += (ev.self_cuda_time_total if us is None else us) / 1e3
+    return total
+
+
+def kernel_device_ms(averages) -> dict:
+    """Device time (ms) of one profiled run, summed over every launch, for
+    each of the port's kernels (by its device-side names) and for all device
+    work ("all")."""
+    out = {k: _device_ms(averages, names) for k, names in KERNEL_FUNCTIONS.items()}
+    out["all"] = _device_ms(averages, None)
+    return out
+
+
+def kernel_ms(fn, names, reps: int = 10) -> float:
+    """Device time (ms) one fn() call spends in the kernels `names`, the
+    mean over `reps` calls traced by torch.profiler after a warm call. Unlike
+    `cuda_ms` it leaves out the host's time between launches (the wrapper's
+    Python work), which a kernel of a few microseconds cannot hide."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return _device_ms(prof.key_averages(), names) / reps
 
 
 def max_abs_err(a, b) -> float:
@@ -285,7 +350,7 @@ def main() -> int:
     shapes = [("combo (4,52)", B * 4, 52), ("combo (7,8)", B * 7, 8), ("combo (2,4)", B * 2, 4),
               ("combo (2,1)", B * 2, 1), ("prover diagonals [B,8,52]", B * 8, 52)]
     errs = 0.0
-    base_pts = None
+    lane_inputs = []
     for name, S, N in shapes:
         kk = torch.as_tensor(GameRng(S + N).scalar_limbs(q, (S, N), fr.L).astype(np.int32), device=dev)
         kk[0, 0] = 0  # edge scalars: 0, 1, q-1
@@ -313,9 +378,9 @@ def main() -> int:
                 kint = sum(int(v) << (16 * j) for j, v in enumerate(hk[s, i]))
                 acc = cv.host.add(acc, cv.host.mul(kint, hpts[s][i]))
             require(hout[s] == acc, (name, s))
-        if base_pts is None or name.startswith("prover"):
-            base_pts = (name, pts, kk)
+        lane_inputs.append((name, pts, kk))
         log(f"msm_lanes {name} [S={S}, N={N}]: equal to plain; host bigints agree")
+    lane_inputs += lanes_edge_phase(dev, g)
     kernels["msm_lanes"] = dict(max_abs_err=errs)
 
     # ------------------------------------- 2d. msm_chunked vs plain
@@ -424,10 +489,16 @@ def main() -> int:
 
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             prove_verify(data)
-        table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=30)
+        averages = prof.key_averages()
+        table = averages.table(sort_by="device_time_total", row_limit=30)
         with open(os.path.join(args.profile, "profile_b%d.txt" % B), "w") as fh:
             fh.write(table)
         log(table)
+        device_ms = kernel_device_ms(averages)
+        for k, v in device_ms.items():
+            if k in kernels:
+                kernels[k]["device_ms_b128"] = v
+        log(f"device time per B={B} prove+verify at msm_nc = 1, by kernel (ms): {device_ms}")
 
     deck, shuffled, pi, rho, rand = data
     cut = lambda c: Ciphertexts(*(map_point(lambda t: t[:1], p) for p in c))
@@ -503,31 +574,45 @@ def main() -> int:
     a, _ = rand_field(f, n_mm)
     b, _ = rand_field(f, n_mm)
     ms = cuda_ms(lambda: cuda_field.mont_mul(f, a, b), 20, 3)
+    dms = kernel_ms(lambda: cuda_field.mont_mul(f, a, b), KERNEL_FUNCTIONS["mont_mul"])
     plain = cuda_ms(lambda: cuda_field.mont_mul_plain(f, a, b), 5)
     bms, by = bound(n_mm * word_products(f.L) * 2, n_mm * 3 * f.L * 4)
-    kernels["mont_mul"].update(ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by, shape=f"{n_mm} Stark Fq elements")
-    log(f"mont_mul [{n_mm} x L=16]: {ms:.4f} ms, plain {plain:.3f} ms, bound {bms:.5f} ms ({by})")
+    kernels["mont_mul"].update(ms=ms, device_ms=dms, plain_ms=plain, bound_ms=bms, bound_by=by,
+                               shape=f"{n_mm} Stark Fq elements")
+    log(f"mont_mul [{n_mm} x L=16]: {ms:.4f} ms (device {dms:.4f} ms), plain {plain:.3f} ms, bound {bms:.5f} ms ({by})")
 
     n_pa = n_add
     ms = cuda_ms(lambda: cuda_curve.point_add(cv, P, Q), 20, 3)
+    dms = kernel_ms(lambda: cuda_curve.point_add(cv, P, Q), KERNEL_FUNCTIONS["point_add"])
     plain = cuda_ms(lambda: cuda_curve.point_add_plain(cv, P, Q), 5)
     bms, by = bound(n_pa * ADD_PRODUCTS * word_products(f.L) * 2, n_pa * 9 * f.L * 4)
-    kernels["point_add"].update(ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by, shape=f"{n_pa} additions")
-    log(f"point_add [{n_pa}]: {ms:.4f} ms, plain {plain:.3f} ms, bound {bms:.5f} ms ({by})")
+    kernels["point_add"].update(ms=ms, device_ms=dms, plain_ms=plain, bound_ms=bms, bound_by=by,
+                                shape=f"{n_pa} additions")
+    log(f"point_add [{n_pa}]: {ms:.4f} ms (device {dms:.4f} ms), plain {plain:.3f} ms, bound {bms:.5f} ms ({by})")
 
-    name, pts, kk = base_pts
-    S, Nm = kk.shape[0], kk.shape[1]
+    # msm_lanes at every shape of phase 2c and at S = 1, N = 1 (the fold
+    # alone, nearly); plain and bound at the prover diagonals
     c = cuda_msm.WINDOW
     W = cuda_msm.num_windows(cv)
-    ms = cuda_ms(lambda: cuda_msm.msm_lanes(cv, pts, kk), 10, 2)
-    plain = cuda_ms(lambda: cuda_msm.msm_lanes_plain(cv, pts, kk), 1, 0)
-    # per statement: the multiples tables, the window sums, the fold
-    adds = S * Nm * ((1 << c) - 2) + S * W * Nm + S * W
-    dbls = S * W * c
-    products = adds * ADD_PRODUCTS + dbls * DBL_PRODUCTS
-    bms, by = bound(products * word_products(f.L) * 2, (S * Nm * (3 * f.L + fr.L) + S * 3 * f.L) * 4)
-    kernels["msm_lanes"].update(ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by, shape=f"{name}: S={S}, N={Nm}")
-    log(f"msm_lanes [{name}: S={S}, N={Nm}]: {ms:.3f} ms, plain {plain:.1f} ms, bound {bms:.4f} ms ({by})")
+    by_shape = {}
+    for name, pts, kk in lane_inputs:
+        S, Nm = kk.shape[0], kk.shape[1]
+        ms = cuda_ms(lambda: cuda_msm.msm_lanes(cv, pts, kk), 10, 2)
+        by_shape[f"{name}: S={S}, N={Nm}"] = ms
+        log(f"msm_lanes [{name}: S={S}, N={Nm}]: {ms:.3f} ms")
+        if not name.startswith("prover"):
+            continue
+        dms = kernel_ms(lambda: cuda_msm.msm_lanes(cv, pts, kk), KERNEL_FUNCTIONS["msm_lanes"])
+        plain = cuda_ms(lambda: cuda_msm.msm_lanes_plain(cv, pts, kk), 1, 0)
+        # per statement: the multiples tables, the window sums, the fold
+        adds = S * Nm * ((1 << c) - 2) + S * W * Nm + S * W
+        dbls = S * W * c
+        products = adds * ADD_PRODUCTS + dbls * DBL_PRODUCTS
+        bms, by = bound(products * word_products(f.L) * 2, (S * Nm * (3 * f.L + fr.L) + S * 3 * f.L) * 4)
+        kernels["msm_lanes"].update(ms=ms, device_ms=dms, plain_ms=plain, bound_ms=bms, bound_by=by,
+                                    shape=f"{name}: S={S}, N={Nm}")
+        log(f"msm_lanes [{name}: S={S}, N={Nm}]: device {dms:.4f} ms, plain {plain:.1f} ms, bound {bms:.4f} ms ({by})")
+    kernels["msm_lanes"]["ms_by_shape"] = by_shape
 
     # ------------------------------------------- 5. the protocol path
     kernels["fold_windows"].update(fold_phase(dev, g, kernels))
@@ -550,7 +635,8 @@ def main() -> int:
         "msm_chunked": ("mental_poker_tpu_torch/csrc/msm_chunked.cu", "mental_poker_tpu/ops/pallas/msm.py:133"),
     }
     extra = ("shape", "launches_b1", "launches_round", "launches_nc8", "launches_sweep", "ms_s128",
-             "plain_ms_s128", "bound_ms_s128", "chain_ms", "msm_lanes_nc1_ms", "msm_lanes_nc8_ms")
+             "plain_ms_s128", "bound_ms_s128", "chain_ms", "msm_lanes_nc1_ms", "msm_lanes_nc8_ms",
+             "ms_by_shape", "device_ms", "device_ms_s128", "device_ms_b128")
     rows = []
     for kname, (src, replaces) in meta.items():
         kv = kernels[kname]
@@ -570,6 +656,53 @@ def main() -> int:
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0
+
+
+# Statement counts at the lane groups' edges (the fold kernel takes four
+# statements a block, the lane-MSM kernel two); 1,000 fills many blocks.
+EDGE_S = (1, 2, 3, 4, 5, 31, 32, 33, 1000)
+
+
+def lanes_edge_phase(dev, g) -> list:
+    """2c, edges. `msm_lanes` (nc = 1) against its plain version, limb for
+    limb, on both curves at S = 1, N = 1 and at every S of `EDGE_S` but 4 and
+    5 with N = 3, points a_i * B of one base B; the first and last statements
+    against host bigints, (sum_i k_i a_i) * B. Returns the Stark S = 1, N = 1
+    inputs, for phase 4's times."""
+    import numpy as np
+    import torch
+
+    from mental_poker_tpu_torch.ops.cuda import msm as cuda_msm
+    from mental_poker_tpu_torch.ops.curve import PointP, bls12_377_g1, stark_curve
+    from mental_poker_tpu_torch.ops.msm import FixedBaseTable
+    from mental_poker_tpu_torch.utils.rand import GameRng
+
+    bls = bls12_377_g1()
+    bls_base = bls.host.rand_point(GameRng(9).rng)
+    cases = ((stark_curve(), g.generator, g.enc.gen_table), (bls, bls_base, FixedBaseTable(bls, bls_base, 4, dev)))
+    to_int = lambda v: sum(int(x) << (16 * j) for j, x in enumerate(v))
+    timed = []
+    for cv, base, table in cases:
+        q = cv.host.order
+        for S, N in [(1, 1)] + [(S, 3) for S in EDGE_S if S not in (4, 5)]:
+            a = GameRng(500 + S + N).scalar_limbs(q, (S, N), cv.fr.L).astype(np.int32)
+            k = GameRng(600 + S + N).scalar_limbs(q, (S, N), cv.fr.L).astype(np.int32)
+            pts = table.mul(torch.as_tensor(a, device=dev))
+            kk = torch.as_tensor(k, device=dev)
+            got = cuda_msm.msm_lanes(cv, pts, kk)
+            want = cuda_msm.msm_lanes_plain(cv, pts, kk)
+            torch.cuda.synchronize()
+            err = max_abs_err(got, want)
+            if err:
+                raise AssertionError(f"msm_lanes {cv.name} [S={S}, N={N}]: kernel differs from plain by {err}")
+            host = cv.to_host_points(PointP(*(t[[0, S - 1]] for t in got)))
+            for h, s in zip(host, (0, S - 1)):
+                total = sum(to_int(a[s, i]) * to_int(k[s, i]) for i in range(N)) % q
+                require(h == cv.host.mul(total, base), ("msm_lanes edge", cv.name, S, N, s))
+            log(f"msm_lanes {cv.name} [S={S}, N={N}]: equal to plain; statements 0 and {S - 1} agree with host bigints")
+            if cv.name == "stark" and S == 1 and N == 1:
+                timed.append(("one statement of one point", pts, kk))
+    return timed
 
 
 def chunked_statement(dev, cv, table, S, N, seed):
@@ -676,6 +809,7 @@ def chunked_phase(dev, g, shapes) -> tuple:
     W = cuda_msm.num_windows(cv)
     NB = -(-N // nc)
     ms = cuda_ms(lambda: cuda_msm.msm_chunked(cv, P, k, nc), 10, 2)
+    dms = kernel_ms(lambda: cuda_msm.msm_chunked(cv, P, k, nc), ("msm_table_kernel",) + KERNEL_FUNCTIONS["msm_chunked"])
     plain = cuda_ms(lambda: cuda_msm.msm_chunked_plain(cv, P, k, nc), 1, 0)
     lanes1 = cuda_ms(lambda: cuda_msm.msm_lanes(cv, P, k, nc=1), 10, 2)
     lanes8 = cuda_ms(lambda: cuda_msm.msm_lanes(cv, P, k, nc=nc), 10, 2)
@@ -686,11 +820,11 @@ def chunked_phase(dev, g, shapes) -> tuple:
     bms, by = bound(adds * ADD_PRODUCTS * word_products(L) * 2, (S * N * (3 * L + Lk) + W * S * 3 * L) * 4)
     chain_adds = (1 << cuda_msm.WINDOW) - 2 + NB * (math.ceil(math.log2(nc)) + 1)
     chain_ms = chain_adds * ADD_PRODUCTS * word_products(L) * 2 / SM_CLOCK_HZ * 1e3
-    log(f"msm_chunked [S={S}, N={N}, NC={nc}]: {ms:.3f} ms, plain {plain:.1f} ms, bound {bms:.4f} ms ({by}; "
+    log(f"msm_chunked [S={S}, N={N}, NC={nc}]: {ms:.3f} ms (device {dms:.4f} ms), plain {plain:.1f} ms, bound {bms:.4f} ms ({by}; "
         f"{S * N * ((1 << cuda_msm.WINDOW) - 2)} table and {S * W * N} window additions); "
         f"one window's chain of {chain_adds} additions at one IMAD per clock: {chain_ms:.4f} ms; "
         f"msm_lanes at nc = 1 {lanes1:.3f} ms, at nc = {nc} (chunked + fold) {lanes8:.3f} ms")
-    row = dict(max_abs_err=0.0, ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by, chain_ms=chain_ms,
+    row = dict(max_abs_err=0.0, ms=ms, device_ms=dms, plain_ms=plain, bound_ms=bms, bound_by=by, chain_ms=chain_ms,
                msm_lanes_nc1_ms=lanes1, msm_lanes_nc8_ms=lanes8,
                shape=f"Stark prover diagonals: S={S}, N={N}, NC={nc}")
     return row, compared
@@ -760,13 +894,15 @@ def sweep_phase(dev, compared: set):
     return rows, sum(r["launches"]["msm_chunked"] for r in rows)
 
 
-def fold_phase(dev, g, kernels, batches=(1, BATCH)) -> dict:
+def fold_phase(dev, g, kernels, batches=tuple(sorted(EDGE_S + (BATCH,)))) -> dict:
     """5a. `fold_windows` against its plain version, limb for limb, at the
     built-in W of each curve (Stark 63, BLS12-377 64) and S statements in
-    `batches`. The window sums are k[w, s] * B for a fixed base B (one window
-    sum the identity), so the host check is (sum_w 2^(4w) k[w, s]) * B.
-    Returns the kernel's row: times at S = 1 and S = 128 on Stark (the host
-    argument's combos give S = 1), its bound, and the chain bound."""
+    `batches` (the lane groups' edges, S = 128 and S = 1,000). The window
+    sums are k[w, s] * B for a fixed base B (one window sum the identity), so
+    the host check of the first and last statements is
+    (sum_w 2^(4w) k[w, s]) * B. Returns the kernel's row: times at S = 1 and
+    S = 128 on Stark (the host argument's combos give S = 1), its bound, and
+    the chain bound."""
     import numpy as np
     import torch
 
@@ -794,25 +930,32 @@ def fold_phase(dev, g, kernels, batches=(1, BATCH)) -> dict:
             if err:
                 raise AssertionError(f"fold_windows {cv.name} W={W} S={S}: kernel differs from plain by {err}")
             row["max_abs_err"] = max(row["max_abs_err"], err)
-            host = cv.to_host_points(PointP(*got))
-            for s in {0, S - 1}:
+            host = cv.to_host_points(PointP(*(t[[0, S - 1]] for t in got)))
+            for h, s in zip(host, (0, S - 1)):
                 total = sum(sum(int(v) << (16 * j) for j, v in enumerate(kh[w, s])) << (c * w) for w in range(W))
-                require(host[s] == cv.host.mul(total % q, base), (cv.name, W, S, s))
-            log(f"fold_windows {cv.name} [W={W}, S={S}]: equal to plain; host bigints agree")
-            if cv.name != "stark":
+                require(h == cv.host.mul(total % q, base), (cv.name, W, S, s))
+            log(f"fold_windows {cv.name} [W={W}, S={S}]: equal to plain; statements 0 and {S - 1} agree with host bigints")
+            if cv.name != "stark" or S not in (1, BATCH):
                 continue
             ms = cuda_ms(lambda: cuda_curve.fold_windows(cv, sums, c), 20, 2)
+            dms = kernel_ms(lambda: cuda_curve.fold_windows(cv, sums, c), KERNEL_FUNCTIONS["fold_windows"])
             plain = cuda_ms(lambda: cuda_curve.fold_windows_plain(cv, sums, c), 2, 1)
-            chain_imads = (W * ADD_PRODUCTS + c * W * DBL_PRODUCTS) * word_products(L) * 2
-            bms, by = bound(S * chain_imads, (S * W + S) * 3 * L * 4)
+            bms, by = bound(S * (W * ADD_PRODUCTS + c * W * DBL_PRODUCTS) * word_products(L) * 2,
+                            (S * W + S) * 3 * L * 4)
+            # the critical path: W * (c + 1) dependent point operations (252
+            # doublings and 63 additions on Stark), each GROUP_CHAIN_PRODUCTS
+            # Montgomery products long on a lane group, each product's word
+            # products at two IMADs, issued at one IMAD per clock
+            chain_imads = W * (c + 1) * GROUP_CHAIN_PRODUCTS * word_products(L) * 2
             chain_ms = chain_imads / SM_CLOCK_HZ * 1e3
-            log(f"fold_windows stark [W={W}, S={S}]: {ms:.4f} ms, plain {plain:.1f} ms, bound {bms:.5f} ms ({by}); "
-                f"the chain of {W * (c + 1)} point operations at one IMAD per clock: {chain_ms:.4f} ms")
+            log(f"fold_windows stark [W={W}, S={S}]: {ms:.4f} ms (device {dms:.4f} ms), plain {plain:.1f} ms, bound {bms:.5f} ms ({by}); "
+                f"the critical path of {W * (c + 1)} point operations at {GROUP_CHAIN_PRODUCTS} products each, "
+                f"one IMAD per clock: {chain_ms:.4f} ms")
             if S == 1:
-                row.update(ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by, chain_ms=chain_ms,
+                row.update(ms=ms, device_ms=dms, plain_ms=plain, bound_ms=bms, bound_by=by, chain_ms=chain_ms,
                            shape=f"Stark W={W}, S=1 (the host argument's combos)")
             else:
-                row.update(ms_s128=ms, plain_ms_s128=plain, bound_ms_s128=bms)
+                row.update(ms_s128=ms, device_ms_s128=dms, plain_ms_s128=plain, bound_ms_s128=bms)
     return row
 
 

@@ -2,7 +2,7 @@
 //
 // Replaces mental_poker_tpu/ops/pallas/field.py::_mont_mul_kernel. One
 // thread per element: it loads both operands' 16-bit limbs as 32-bit words,
-// runs the CIOS product of mont.cuh (2*NW^2 + NW word products) and stores
+// runs mont.cuh's CIOS product on the carry flag (2*NW^2 + NW word products) and stores
 // the reduced result. Bound on the H100: device memory. A Stark element
 // moves 192 bytes (two operands in, one out, 16-bit limbs stored as 32-bit
 // ints) against 136 word products (272 multiply-add instructions), which at

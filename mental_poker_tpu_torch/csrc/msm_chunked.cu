@@ -39,7 +39,7 @@
 constexpr int kMaxNC = 8;
 constexpr int kBlockThreads = 128;
 
-template <int NW>
+template <int NW, int AC>
 __global__ void msm_chunked_window_kernel(const uint32_t* __restrict__ tbl, const uint32_t* __restrict__ k,
                                           int Lk, int N, int NC, int W, int groups,
                                           uint32_t* __restrict__ ox, uint32_t* __restrict__ oy,
@@ -70,10 +70,10 @@ __global__ void msm_chunked_window_kernel(const uint32_t* __restrict__ tbl, cons
       __syncthreads();
       if (slot % (2 * h) == 0 && slot + h < NC) {
         load_pt<NW>(mine + h * 3 * NW, e);
-        point_add<NW>(v, v, e, C);
+        point_add<NW, AC>(v, v, e, C);
       }
     }
-    if (slot == 0) point_add<NW>(acc, acc, v, C);
+    if (slot == 0) point_add<NW, AC>(acc, acc, v, C);
     __syncthreads();  // the next chunk's stores wait for this chunk's reads
   }
   if (live && slot == 0) {
@@ -84,18 +84,17 @@ __global__ void msm_chunked_window_kernel(const uint32_t* __restrict__ tbl, cons
   }
 }
 
-template <int NW>
+template <int NW, int AC>
 static int launch(int W, const void* px, const void* py, const void* pz, const void* k, int Lk, void* tbl,
-                  void* ox, void* oy, void* oz, long long S, int N, int NC, const uint32_t* consts,
+                  void* ox, void* oy, void* oz, long long S, int N, int NC, const CurveConsts<NW>& C,
                   cudaStream_t stream) {
-  const CurveConsts<NW> C = curve_consts<NW>(consts);
-  cudaError_t err = launch_tables<NW>(px, py, pz, tbl, S * (long long)N, C, stream);
+  cudaError_t err = launch_tables<NW, AC>(px, py, pz, tbl, S * (long long)N, C, stream);
   if (err != cudaSuccess) return (int)err;
   const int wg = kBlockThreads / NC;
   const int groups = (W + wg - 1) / wg;
   const int threads = wg * NC;
   const size_t shared = (size_t)threads * 3 * NW * sizeof(uint32_t);
-  msm_chunked_window_kernel<NW><<<(unsigned)(S * groups), threads, shared, stream>>>(
+  msm_chunked_window_kernel<NW, AC><<<(unsigned)(S * groups), threads, shared, stream>>>(
       static_cast<const uint32_t*>(tbl), static_cast<const uint32_t*>(k), Lk, N, NC, W, groups,
       static_cast<uint32_t*>(ox), static_cast<uint32_t*>(oy), static_cast<uint32_t*>(oz), S, C);
   return (int)cudaGetLastError();
@@ -104,14 +103,22 @@ static int launch(int W, const void* px, const void* py, const void* pz, const v
 // L: limbs per coordinate (16 Stark, 24 BLS12-377 G1); W: 4-bit windows,
 // with Lk >= W / 4; points [S, N, L]; k: canonical scalar limbs [S, N, Lk];
 // NC: points per step, 1..kMaxNC; tbl: scratch of S*N*16*3*(L/2) words;
-// outputs: window sums [W, S, L]; consts as in curve.cu.
-extern "C" int mp_msm_chunked(int L, int W, const void* px, const void* py, const void* pz,
+// outputs: window sums [W, S, L]; acase and consts as in curve.cu.
+extern "C" int mp_msm_chunked(int L, int W, int acase, const void* px, const void* py, const void* pz,
                               const void* k, int Lk, void* tbl, void* ox, void* oy, void* oz,
                               long long S, int N, int NC, const void* consts, void* stream) {
   if (S <= 0 || N <= 0 || W <= 0 || 4 * Lk < W || NC < 1 || NC > kMaxNC) return (int)cudaErrorInvalidValue;
   const uint32_t* w = static_cast<const uint32_t*>(consts);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (L == 16) return launch<8>(W, px, py, pz, k, Lk, tbl, ox, oy, oz, S, N, NC, w, s);
-  if (L == 24) return launch<12>(W, px, py, pz, k, Lk, tbl, ox, oy, oz, S, N, NC, w, s);
+  if (L == 16) {
+    return with_curve<8>(acase, w, [&](const CurveConsts<8>& C, auto ac) {
+      return launch<8, decltype(ac)::value>(W, px, py, pz, k, Lk, tbl, ox, oy, oz, S, N, NC, C, s);
+    });
+  }
+  if (L == 24) {
+    return with_curve<12>(acase, w, [&](const CurveConsts<12>& C, auto ac) {
+      return launch<12, decltype(ac)::value>(W, px, py, pz, k, Lk, tbl, ox, oy, oz, S, N, NC, C, s);
+    });
+  }
   return (int)cudaErrorInvalidValue;
 }

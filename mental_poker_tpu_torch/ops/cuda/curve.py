@@ -9,13 +9,15 @@ Replaces `mental_poker_tpu/ops/pallas/curve.py::_add_kernel` (body
   Costello and Batina (2015), Algorithm 1, complete for any a, so the
   identity and P + P need no branch (doubling is add(P, P)).
 - What bounds it on the H100: memory and arithmetic nearly balance. A
-  Stark addition is 17 Montgomery products (12 general, 5 by the constants
-  a and 3b) of 136 word products each, 4,624 multiply-add instructions,
-  against 576 bytes of device memory (six coordinates in, three out); at
-  the peak rates the bytes take about 1.2x longer.
+  Stark addition is 14 Montgomery products (12 general, 2 by 3b; the 3
+  products by a are specialised away for a = 0 and a = 1, see `a_case`) of
+  136 word products each, 3,808 multiply-add instructions, against 576
+  bytes of device memory (six coordinates in, three out); at the peak rates
+  the multiply-adds take about 1.3x longer.
 - What the design does about it: one thread per addition with the whole
-  formula in registers, so device memory sees only the inputs and outputs.
-  The schedule is the JAX kernel's, product for product, so the projective
+  formula in registers, so device memory sees only the inputs and outputs;
+  the Montgomery product runs on the carry flag (`csrc/mont.cuh`). The
+  schedule is the JAX kernel's, product for product, so the projective
   result equals the plain version limb for limb.
 """
 
@@ -32,7 +34,17 @@ from .. import limbs
 from . import LAUNCHES, build
 from .field import _check, _field_words, mont_mul_plain, words
 
-_ARGS = [ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p]
+_ARGS = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 9 + [ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p]
+
+A_ZERO, A_ONE, A_GENERAL = 0, 1, 2  # csrc/mont.cuh's kAZero, kAOne, kAGeneral
+
+
+def a_case(cv) -> int:
+    """The kernels' compile-time case for the curve's a: `A_ZERO` (products
+    by a are 0), `A_ONE` (they are copies) or `A_GENERAL`. Chosen from a
+    itself, whatever the limb count; exact, since mont_mul(x, 0) = 0 and
+    mont_mul(x, R mod p) = x for reduced x."""
+    return {0: A_ZERO, 1: A_ONE}.get(cv.a_int, A_GENERAL)
 
 
 def curve_words(cv) -> np.ndarray:
@@ -124,7 +136,7 @@ def point_add_cuda(cv, P, Q):
     fn = build.function("curve.cu", "mp_point_add", _ARGS)
     stream = torch.cuda.current_stream(x1.device).cuda_stream
     build.check(
-        fn(L, *(t.data_ptr() for t in coords), *(o.data_ptr() for o in out), n,
+        fn(L, a_case(cv), *(t.data_ptr() for t in coords), *(o.data_ptr() for o in out), n,
            consts.ctypes.data, stream),
         "point_add",
     )
@@ -151,20 +163,25 @@ def point_add(cv, P, Q):
 #   significant), by the TPU kernel's Horner schedule: from the identity, for
 #   w = W-1 down to 0, c doublings as add(acc, acc), then add(acc, S_w).
 # - What bounds it on the H100: W * (c + 1) dependent additions per statement
-#   (315 for Stark, 320 for BLS12-377). For the single-statement calls of the
+#   (315 for Stark, 320 for BLS12-377). For the few-statement calls of the
 #   host Bayer-Groth argument the latency of that chain sets the time, not
 #   the card's rate; at S statements the operations bound is S times the
-#   chain's Montgomery products.
-# - What the design does about it: one thread per statement with the
-#   accumulator in registers (`fold_windows_kernel` in `csrc/curve.cu`, the
-#   loop shared with msm.cu through `mont.cuh`); device memory sees each
-#   window sum once and each result once. The window (c = 4) and W are built
-#   in per curve, as in msm.cu; other shapes raise on the card.
+#   chain's Montgomery products. Window w must be doubled c*w times, so the
+#   chain of doublings cannot be shortened by reordering.
+# - What the design does about it: it cuts the latency of each addition.
+#   A lane group of eight threads takes one statement and spreads the
+#   products of each of RCB15's three layers over its lanes, so three
+#   products lie on the critical path of an addition instead of 14-17
+#   (`csrc/fold.cuh::group_fold`, shared with msm.cu's window/fold kernel).
+#   One warp per block, four statements; the block stages its statements'
+#   window sums in shared memory, so device memory sees each window sum and
+#   each result once. The window (c = 4) and W are built in per curve, as in
+#   msm.cu; other shapes raise on the card.
 # ---------------------------------------------------------------------------
 
 FOLD_WINDOW = 4  # csrc/curve.cu's kFoldC
 FOLD_W = {16: 63, 24: 64}  # windows built in per limb count (Stark, BLS12-377)
-_FOLD_ARGS = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 6 + [ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p]
+_FOLD_ARGS = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 6 + [ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p]
 
 
 def fold_windows_plain(cv, S, c: int):
@@ -202,7 +219,7 @@ def fold_windows_cuda(cv, S, c: int):
     fn = build.function("curve.cu", "mp_fold_windows", _FOLD_ARGS)
     stream = torch.cuda.current_stream(sx.device).cuda_stream
     build.check(
-        fn(L, W, *(t.data_ptr() for t in S), *(o.data_ptr() for o in out), n,
+        fn(L, W, a_case(cv), *(t.data_ptr() for t in S), *(o.data_ptr() for o in out), n,
            curve_words(cv).ctypes.data, stream),
         "fold_windows",
     )

@@ -15,9 +15,10 @@ the shared routines of `csrc/mont.cuh`.
   intermediate in registers, 16-byte loads, one pass over memory. The TPU
   kernel's 16-bit limbs and Kogge-Stone carry scans exist because its
   vector unit has no 32x32->64 multiply; the GPU does, so the kernel packs
-  limbs into 32-bit words and uses carry-chained CIOS Montgomery
-  multiplication. The output is the unique reduced value, so it equals the
-  plain version limb for limb.
+  limbs into 32-bit words and runs CIOS Montgomery multiplication on the
+  carry flag (PTX multiply-adds with carry in and out, the even and odd
+  words' products in two independent chains; `csrc/mont.cuh`). The output is
+  the unique reduced value, so it equals the plain version limb for limb.
 """
 
 from __future__ import annotations

@@ -14,8 +14,11 @@ Source: `csrc/msm.cu` with the shared routines of `csrc/mont.cuh`.
 - What the design does about it: the TPU kernel puts statements on vector
   lanes and selects table entries with masks; here a first kernel builds
   every point's table with one thread per (statement, point), and a second
-  runs one block per statement with one thread per window, so the W window
-  sums of a statement accumulate in parallel and only the fold is serial.
+  runs two statements per block with one thread per (statement, window),
+  so the W window sums of a statement accumulate in parallel; then a lane
+  group of eight of the block's threads folds each statement with the
+  products of every addition spread over its lanes (`csrc/fold.cuh`), three
+  products on the critical path of an addition.
   `ops/msm.py::msm` splits the points of few-statement calls over several
   statements (the wide-split mapping) so that narrow calls still fill the
   card.
@@ -58,13 +61,13 @@ import torch
 
 from ...config import get_config
 from . import LAUNCHES, build
-from .curve import curve_words, fold_windows, fold_windows_plain, point_add_plain
+from .curve import a_case, curve_words, fold_windows, fold_windows_plain, point_add_plain
 from .field import _check
 
-_ARGS = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_void_p] * 4
+_ARGS = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_void_p] * 4
          + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
 
-_CHUNKED_ARGS = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_void_p] * 4
+_CHUNKED_ARGS = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_void_p] * 4
                  + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
 
 WINDOW = 4  # window bits; csrc/msm_table.cuh's kC
@@ -140,7 +143,7 @@ def msm_lanes_cuda(cv, P, k: torch.Tensor):
     fn = build.function("msm.cu", "mp_msm_lanes", _ARGS)
     stream = torch.cuda.current_stream(px.device).cuda_stream
     build.check(
-        fn(L, num_windows(cv), *(t.data_ptr() for t in P), k.data_ptr(), Lk, tbl.data_ptr(),
+        fn(L, num_windows(cv), a_case(cv), *(t.data_ptr() for t in P), k.data_ptr(), Lk, tbl.data_ptr(),
            *(o.data_ptr() for o in out), S, N, consts.ctypes.data, stream),
         "msm_lanes",
     )
@@ -206,7 +209,7 @@ def msm_chunked_cuda(cv, P, k: torch.Tensor, nc: int):
     fn = build.function("msm_chunked.cu", "mp_msm_chunked", _CHUNKED_ARGS)
     stream = torch.cuda.current_stream(px.device).cuda_stream
     build.check(
-        fn(L, W, *(t.data_ptr() for t in P), k.data_ptr(), Lk, tbl.data_ptr(),
+        fn(L, W, a_case(cv), *(t.data_ptr() for t in P), k.data_ptr(), Lk, tbl.data_ptr(),
            *(o.data_ptr() for o in out), S, N, min(nc, N), curve_words(cv).ctypes.data, stream),
         "msm_chunked",
     )

@@ -17,6 +17,7 @@ from mental_poker_tpu_torch.ops.cuda import curve as cuda_curve
 from mental_poker_tpu_torch.ops.cuda import field as cuda_field
 from mental_poker_tpu_torch.ops.cuda import msm as cuda_msm
 from mental_poker_tpu_torch.ops.curve import PointP, bls12_377_g1, stark_curve
+from mental_poker_tpu_torch.ops.msm import FixedBaseTable
 from mental_poker_tpu_torch.utils.rand import GameRng, ints_to_limbs
 
 pytestmark = pytest.mark.cuda
@@ -51,6 +52,57 @@ def test_point_add_kernel_equals_plain(dev):
     got = cuda_curve.point_add(cv, P, Q)
     want = cuda_curve.point_add_plain(cv, P, Q)
     assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def _limbs_int(v):
+    return sum(int(x) << (16 * j) for j, x in enumerate(v))
+
+
+# Statement counts at the lane groups' edges: the fold kernel takes four
+# statements a block, the MSM kernel two; 1,000 fills many blocks.
+EDGE_S = [1, 2, 3, 4, 5, 31, 32, 33, 1000]
+
+
+@pytest.mark.parametrize("curve", [stark_curve, bls12_377_g1])
+@pytest.mark.parametrize("S", EDGE_S)
+def test_fold_windows_kernel_edges(dev, curve, S):
+    """Window sums k[w, s] * B of one base B (statement 0's top window the
+    identity): kernel equal to plain limb for limb, and the first and last
+    statements equal to (sum_w 2^(4w) k[w, s]) * B in host ints."""
+    cv = curve()
+    W, c, q = cuda_curve.FOLD_W[cv.fq.L], cuda_curve.FOLD_WINDOW, cv.host.order
+    base = cv.host.rand_point(GameRng(8).rng)
+    kh = GameRng(W + S).scalar_limbs(q, (W, S), cv.fr.L).astype(np.int32)
+    kh[W - 1, 0] = 0
+    sums = FixedBaseTable(cv, base, c, dev).mul(torch.as_tensor(kh, device=dev))
+    got = cuda_curve.fold_windows(cv, sums, c)
+    want = cuda_curve.fold_windows_plain(cv, sums, c)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    host = cv.to_host_points(PointP(*(t[[0, S - 1]] for t in got)))
+    for h, s in zip(host, (0, S - 1)):
+        total = sum(_limbs_int(kh[w, s]) << (c * w) for w in range(W))
+        assert h == cv.host.mul(total % q, base)
+
+
+@pytest.mark.parametrize("curve", [stark_curve, bls12_377_g1])
+@pytest.mark.parametrize("S,N", [(1, 1)] + [(S, 3) for S in EDGE_S if S != 4 and S != 5])
+def test_msm_kernel_edges(dev, curve, S, N):
+    """Points a[s, i] * B of one base B: kernel equal to plain limb for limb,
+    and the first and last statements equal to (sum_i k a) * B."""
+    cv = curve()
+    q = cv.host.order
+    base = cv.host.rand_point(GameRng(9).rng)
+    a = GameRng(S + 10 * N).scalar_limbs(q, (S, N), cv.fr.L).astype(np.int32)
+    k = GameRng(S + 10 * N + 1).scalar_limbs(q, (S, N), cv.fr.L).astype(np.int32)
+    P = FixedBaseTable(cv, base, 4, dev).mul(torch.as_tensor(a, device=dev))
+    kt = torch.as_tensor(k, device=dev)
+    got = cuda_msm.msm_lanes(cv, P, kt, nc=1)
+    want = cuda_msm.msm_lanes_plain(cv, P, kt)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    host = cv.to_host_points(PointP(*(t[[0, S - 1]] for t in got)))
+    for h, s in zip(host, (0, S - 1)):
+        total = sum(_limbs_int(a[s, i]) * _limbs_int(k[s, i]) for i in range(N))
+        assert h == cv.host.mul(total % q, base)
 
 
 def test_msm_kernel_equals_plain(dev):

@@ -150,3 +150,77 @@ def test_multiples_table_and_select():
     sel = tc.select(torch.tensor([True, False]), TP, tc.neg(TP))
     assert tc.to_host_points(sel) == [pts[0], jc.host.neg(pts[1])]
     assert tc.is_identity(tc.identity((3,), "cpu")).all()
+
+
+def _stark_with_a(a):
+    """The Stark field and order under another curve constant a (L = 16):
+    not a curve anyone uses, only a holder of a."""
+    st = tcurve.stark_curve()
+    h = st.host
+    host = type(h)(name=f"stark_a{a}", p=h.p, a=a, b=h.b, order=h.order, gx=h.gx, gy=h.gy)
+    return tcurve.Curve(host, st.fq, st.fr)
+
+
+def test_kernel_a_case_from_curve_a():
+    """The kernels' compile-time a-case comes from the curve's a, not from its
+    limb count: Stark (a = 1, L = 16), BLS12-377 (a = 0, L = 24), the toy
+    curve of test_torch_chunked.py (a = 1, L = 2) and Stark's field with
+    a = 3 or a = p - 1 (L = 16, the general case)."""
+    from test_torch_chunked import _toy_curve
+
+    assert cuda_curve.a_case(tcurve.stark_curve()) == cuda_curve.A_ONE
+    assert cuda_curve.a_case(tcurve.bls12_377_g1()) == cuda_curve.A_ZERO
+    assert _toy_curve().fq.L == 2 and cuda_curve.a_case(_toy_curve()) == cuda_curve.A_ONE
+    for a in (3, tcurve.stark_curve().fq.p - 1):
+        cv = _stark_with_a(a)
+        assert cv.fq.L == 16 and cuda_curve.a_case(cv) == cuda_curve.A_GENERAL
+
+
+def _rcb_add_host_case(cv, P, Q, case):
+    """RCB15 Algorithm 1 on Montgomery-form ints in the kernels' order, with
+    the products by a as the kernels' a-case has them: a copy for a = 1, zero
+    for a = 0, a product otherwise."""
+    p = cv.fq.p
+    R = 1 << (16 * cv.fq.L)
+    Ri = pow(R, -1, p)
+    mul = lambda u, v: u * v * Ri % p
+    by_a = {cuda_curve.A_ZERO: lambda u: 0, cuda_curve.A_ONE: lambda u: u % p}.get(
+        case, lambda u: mul(cv.a_int * R % p, u % p))
+    b3 = 3 * cv.host.b * R % p
+    X1, Y1, Z1 = P
+    X2, Y2, Z2 = Q
+    t0, t1, t2 = mul(X1, X2), mul(Y1, Y2), mul(Z1, Z2)
+    t3 = (mul(X1 + Y1, X2 + Y2) - t0 - t1) % p
+    t4 = (mul(X1 + Z1, X2 + Z2) - t0 - t2) % p
+    t5 = (mul(Y1 + Z1, Y2 + Z2) - t1 - t2) % p
+    z3p = (mul(t2, b3) + by_a(t4)) % p
+    t4b = (mul(t4, b3) + by_a(t0 - t2)) % p
+    t1b = (3 * t0 + by_a(t2)) % p
+    x3a, z3a = (t1 - z3p) % p, (t1 + z3p) % p
+    X3 = (mul(x3a, t3) - mul(t5, t4b)) % p
+    Y3 = (mul(x3a, z3a) + mul(t1b, t4b)) % p
+    Z3 = (mul(t5, z3a) + mul(t3, t1b)) % p
+    return X3, Y3, Z3
+
+
+@pytest.mark.parametrize("name", CURVES)
+def test_a_case_keeps_the_general_triple(name):
+    """With the products by a replaced as the curve's a-case says (a copy on
+    Stark, zero on BLS12-377), Algorithm 1 gives the general schedule's
+    projective triple, in host ints, on random points and random projective
+    scalings of them, doubling included."""
+    tc = getattr(tcurve, name)()
+    case = cuda_curve.a_case(tc)
+    assert case != cuda_curve.A_GENERAL
+    p, R = tc.fq.p, tc.fq.R
+    rng = random.Random(11)
+    pts = []
+    for P in _points(tc, 8, 10) + [tc.host.identity]:
+        lam = rng.randrange(1, p)
+        x, y, z = (0, 1, 0) if P[2] else (P[0], P[1], 1)
+        pts.append(tuple(v * lam % p * R % p for v in (x, y, z)))
+    pairs = [(P, Q) for P in pts for Q in pts[::3]] + [(P, P) for P in pts]
+    for P, Q in pairs:
+        want = _rcb_add_host(tc, P, Q)
+        assert _rcb_add_host_case(tc, P, Q, case) == want
+        assert _rcb_add_host_case(tc, P, Q, cuda_curve.A_GENERAL) == want
