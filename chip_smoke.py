@@ -43,8 +43,12 @@ Phases (every failure exits non-zero; nothing is caught and ignored):
 6. The chunked MSM (third slice): its kernel against its plain version
    (phase 2d) at every shape the staged flow gives it at `msm_nc = 8` (the
    five B=128 shapes after the wide split, the verifier's B=1 combos), at
-   Stark S = 3, N = 5, NC = 4 and at two BLS12-377 shapes, window sums limb
-   for limb and their folds against host bigints; the main path again with
+   Stark S = 3, N = 5, NC = 4 and at two BLS12-377 shapes, and at the edges
+   of the window kernel's thread mapping on both curves (every NC from 1 to
+   8 at S = 1 and 33, with and without pad slots; S = 2, 3, 31, 32 and
+   1,000 at NC = 8 and 3), window sums limb for limb and their folds
+   against host bigints; timed at the prover diagonals (the table and the
+   window kernel apart) and at the B=1 verifier's shapes; the main path again with
    `msm_nc = 8` (phase 3b: the B=128 proof must equal the nc = 1 proof leaf
    for leaf, with the chunked and fold kernels launched and the lane kernel
    not; the tampered deck rejected at nc = 8 too); and the reference's
@@ -120,6 +124,28 @@ def word_products(L: int) -> int:
     return 2 * nw * nw + nw
 
 
+def ptxas_summary(text: str) -> list:
+    """One line per kernel of an `nvcc -Xptxas -v` log: its name with its
+    template arguments (`msm_chunked_window_kernel<8,1>`: NW = 8 words,
+    a-case 1), its registers and its spills."""
+    import re
+
+    out, name, spill = [], None, ""
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '_Z(\d+)(\w+)'", line)
+        if m:
+            ident, rest = m.group(2)[:int(m.group(1))], m.group(2)[int(m.group(1)):]
+            args = re.match(r"I((?:Li\d+E)+)E", rest)
+            name = ident + (f"<{','.join(re.findall(r'Li(\d+)E', args.group(1)))}>" if args else "")
+        elif "spill" in line:
+            spill = line.strip()
+        elif "registers" in line and name:
+            regs = re.search(r"Used (\d+) registers", line)
+            out.append(f"{name}: {regs.group(1) if regs else '?'} registers; {spill}")
+            name, spill = None, ""
+    return out
+
+
 def sm_clock_hz() -> float:
     """The card's maximum SM clock."""
     out = subprocess.run(
@@ -171,6 +197,8 @@ KERNEL_FUNCTIONS = {
     "fold_windows": ("fold_windows_kernel",),
     "msm_chunked": ("msm_chunked_window_kernel",),
 }
+# msm_chunked's two launches, timed apart
+CHUNKED_SPLIT = {"table": ("msm_table_kernel",), "window": ("msm_chunked_window_kernel",)}
 
 
 def _device_ms(averages, names) -> float:
@@ -195,11 +223,12 @@ def kernel_device_ms(averages) -> dict:
     return out
 
 
-def kernel_ms(fn, names, reps: int = 10) -> float:
-    """Device time (ms) one fn() call spends in the kernels `names`, the
-    mean over `reps` calls traced by torch.profiler after a warm call. Unlike
-    `cuda_ms` it leaves out the host's time between launches (the wrapper's
-    Python work), which a kernel of a few microseconds cannot hide."""
+def kernel_ms_by(fn, groups: dict, reps: int = 10) -> dict:
+    """Device time (ms) one fn() call spends in each group of kernels
+    (`groups`: key -> device-side names), the mean over `reps` calls traced
+    by torch.profiler after a warm call. Unlike `cuda_ms` it leaves out the
+    host's time between launches (the wrapper's Python work), which a kernel
+    of a few microseconds cannot hide."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -209,7 +238,13 @@ def kernel_ms(fn, names, reps: int = 10) -> float:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    return _device_ms(prof.key_averages(), names) / reps
+    averages = prof.key_averages()
+    return {key: _device_ms(averages, names) / reps for key, names in groups.items()}
+
+
+def kernel_ms(fn, names, reps: int = 10) -> float:
+    """`kernel_ms_by` for one group of kernels."""
+    return kernel_ms_by(fn, {"": names}, reps)[""]
 
 
 def max_abs_err(a, b) -> float:
@@ -270,9 +305,8 @@ def main() -> int:
     built = build.build_all()
     log(f"build: {time.perf_counter() - t0:.1f} s for {built or 'nothing (cached)'}")
     for src in build.SOURCES:
-        for line in build.build_log(src).splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas {src}: {line.strip()}")
+        for line in ptxas_summary(build.build_log(src)):
+            log(f"  ptxas {src}: {line}")
 
     cv = stark_curve()
     fq, fr = cv.fq, cv.fr
@@ -387,6 +421,7 @@ def main() -> int:
     # 2c's shapes, and the verifier's combos at B=1 (the tampered deck at nc = 8)
     shapes_b1 = [(f"{name} at B=1", S // B, N) for name, S, N in shapes if name.startswith("combo")]
     kernels["msm_chunked"], compared = chunked_phase(dev, g, shapes + shapes_b1)
+    compared |= chunked_edge_phase(dev, g)
 
     def all_compared(seen, where):
         missing = sorted(seen - compared)
@@ -636,7 +671,8 @@ def main() -> int:
     }
     extra = ("shape", "launches_b1", "launches_round", "launches_nc8", "launches_sweep", "ms_s128",
              "plain_ms_s128", "bound_ms_s128", "chain_ms", "msm_lanes_nc1_ms", "msm_lanes_nc8_ms",
-             "ms_by_shape", "device_ms", "device_ms_s128", "device_ms_b128")
+             "ms_by_shape", "device_ms", "device_ms_s128", "device_ms_b128", "table_device_ms",
+             "window_device_ms", "ms_b1")
     rows = []
     for kname, (src, replaces) in meta.items():
         kv = kernels[kname]
@@ -706,11 +742,12 @@ def lanes_edge_phase(dev, g) -> list:
 
 
 def chunked_statement(dev, cv, table, S, N, seed):
-    """S x N points k_i * B of a fixed base B and S x N scalars. At flat
-    positions 0, 1 and 2 of the scalars stand 0, 1 and q - 1, and the point
-    at flat position 3 is the identity, as far as S x N reaches; with N > 3 the last point of statement
-    0 is (0, 0, 0) with scalar 0 when N > 4, as the wide split pads a
-    statement."""
+    """S x N points a_i * B of a fixed base B (`table`) and S x N scalars
+    k_i. At flat positions 0, 1 and 2 of the scalars stand 0, 1 and q - 1,
+    and the point at flat position 3 is the identity, as far as S x N
+    reaches; the last point of statement 0 is (0, 0, 0) with scalar 0 when
+    N > 4, as the wide split pads a statement. Returns the points, the
+    scalars and the host ints a_i (0 where the point was replaced)."""
     import numpy as np
     import torch
 
@@ -722,22 +759,26 @@ def chunked_statement(dev, cv, table, S, N, seed):
     edges = (kk.new_zeros(Lk), cv.fr.small_int_limbs(1, dev), cv.fr.tensor(ints_to_limbs([q - 1], Lk)[0], dev))
     for pos, v in enumerate(edges[:S * N]):
         kk.view(S * N, Lk)[pos] = v
-    pts = map_point(lambda t: t.clone(), table.mul(torch.as_tensor(
-        GameRng(seed + 1).scalar_limbs(q, (S, N), Lk).astype(np.int32), device=dev)))
+    a = GameRng(seed + 1).scalar_limbs(q, (S, N), Lk).astype(np.int32)
+    pts = map_point(lambda t: t.clone(), table.mul(torch.as_tensor(a, device=dev)))
+    a = [[sum(int(v) << (16 * j) for j, v in enumerate(a[s, i])) for i in range(N)] for s in range(S)]
     if S * N > 3:
         for t, v in zip(pts, cv.identity((), dev)):
             t.view(S * N, -1)[3] = v
+        a[3 // N][3 % N] = 0
     if N > 4:
         kk[0, N - 1] = 0
         for t in pts:
             t[0, N - 1] = 0
-    return pts, kk
+        a[0][N - 1] = 0
+    return pts, kk, a
 
 
-def chunked_check(dev, cv, table, S, N, nc, seed, label, host_statements=2):
+def chunked_check(dev, cv, base, table, S, N, nc, seed, label, host=(0, 1), verbose=True):
     """`msm_chunked` against `msm_chunked_plain` at one shape, window sums
-    limb for limb, on `chunked_statement` inputs; the folded sums of the
-    first `host_statements` statements against host bigints. Returns the
+    limb for limb, on `chunked_statement` inputs (points a_i * base from
+    `table`); the folded sums of the statements `host` (negative counts from
+    the end) against host bigints, (sum_i k_i a_i) * base. Returns the
     shape's key (curve, S, N, points per step) and the inputs."""
     import torch
 
@@ -745,28 +786,54 @@ def chunked_check(dev, cv, table, S, N, nc, seed, label, host_statements=2):
     from mental_poker_tpu_torch.ops.cuda import msm as cuda_msm
     from mental_poker_tpu_torch.ops.curve import PointP
 
-    P, k = chunked_statement(dev, cv, table, S, N, seed)
+    P, k, a = chunked_statement(dev, cv, table, S, N, seed)
     got = cuda_msm.msm_chunked(cv, P, k, nc)
     want = cuda_msm.msm_chunked_plain(cv, P, k, nc)
     torch.cuda.synchronize()
     err = max_abs_err(got, want)
     if err:
         raise AssertionError(f"msm_chunked {label} [S={S}, N={N}, NC={nc}]: kernel differs from plain by {err}")
-    nh = min(host_statements, S)
-    if nh:
-        host = cv.to_host_points(PointP(*(t[:nh] for t in cuda_curve.fold_windows(cv, got, cuda_msm.WINDOW))))
-        hk = k[:nh].cpu().numpy()
-        for s in range(nh):
-            hp = cv.to_host_points(PointP(*(t[s] for t in P)))
-            acc = cv.host.identity
-            for i in range(N):
-                kint = sum(int(v) << (16 * j) for j, v in enumerate(hk[s, i]))
-                if kint:  # scalar 0 stands beside the (0, 0, 0) pad point
-                    acc = cv.host.add(acc, cv.host.mul(kint, hp[i]))
-            require(host[s] == acc, (label, s))
-    log(f"msm_chunked {label} [S={S}, N={N}, NC={min(nc, N)}]: window sums equal to plain"
-        + (f"; folds of {nh} statements agree with host bigints" if nh else ""))
+    rows = sorted({s % S for s in host})
+    folded = cv.to_host_points(PointP(*(t[rows] for t in cuda_curve.fold_windows(cv, got, cuda_msm.WINDOW))))
+    hk = k[rows].cpu().numpy()
+    for h, s, ks in zip(folded, rows, hk):
+        total = sum(sum(int(v) << (16 * j) for j, v in enumerate(ks[i])) * a[s][i] for i in range(N))
+        require(h == cv.host.mul(total % cv.host.order, base), (label, S, N, nc, s))
+    if verbose:
+        log(f"msm_chunked {label} [S={S}, N={N}, NC={min(nc, N)}]: window sums equal to plain; "
+            f"folds of statements {rows} agree with host bigints")
     return (cv.host.name, S, N, min(nc, N)), (P, k)
+
+
+def chunked_edge_phase(dev, g) -> set:
+    """2d, edges. `msm_chunked` against its plain version (`chunked_check`)
+    at the edges of the window kernel's thread mapping (two statements to a
+    block of 2 W threads, one chunk tree per thread), on both curves: every
+    NC from 1 to 8 at S = 1 and 33 with N = 3 NC (no pad slot) and
+    N = 2 NC - 1 (pad slots; N = 1 at NC = 1), and S = 2, 3, 31, 32 and
+    1,000 at NC = 8 and 3 with N = 2 NC - 1; the first and last statements
+    of each against host bigints. Returns the shape keys compared."""
+    from mental_poker_tpu_torch.ops.cuda import msm as cuda_msm
+    from mental_poker_tpu_torch.ops.curve import bls12_377_g1, stark_curve
+    from mental_poker_tpu_torch.ops.msm import FixedBaseTable
+    from mental_poker_tpu_torch.utils.rand import GameRng
+
+    bls = bls12_377_g1()
+    bls_base = bls.host.rand_point(GameRng(9).rng)
+    cases = ((stark_curve(), g.generator, g.enc.gen_table), (bls, bls_base, FixedBaseTable(bls, bls_base, 4, dev)))
+    shapes = [(S, N, nc) for nc in range(1, cuda_msm.CHUNK_MAX + 1) for S in (1, 33) for N in (3 * nc, 2 * nc - 1)]
+    shapes += [(S, 2 * nc - 1, nc) for nc in (8, 3) for S in (2, 3, 31, 32, 1000)]
+    compared = set()
+    for cv, base, table in cases:
+        t0 = time.perf_counter()
+        for i, (S, N, nc) in enumerate(shapes):
+            key, _ = chunked_check(dev, cv, base, table, S, N, nc, 200 + 2 * i, f"{cv.host.name} edge",
+                                   host=(0, -1), verbose=False)
+            compared.add(key)
+        log(f"msm_chunked {cv.host.name} edges: window sums equal to plain at {len(shapes)} shapes (NC 1-8 at "
+            f"S = 1 and 33, N = 3 NC and 2 NC - 1; S = 2, 3, 31, 32, 1000 at NC = 8 and 3, N = 2 NC - 1); "
+            f"first and last statements agree with host bigints; {time.perf_counter() - t0:.1f} s")
+    return compared
 
 
 def chunked_phase(dev, g, shapes) -> tuple:
@@ -779,8 +846,6 @@ def chunked_phase(dev, g, shapes) -> tuple:
     shapes (S = 256, N = 10; S = 2, N = 19, which the sweep launches too;
     `sweep_phase` compares the sweep's other shapes). Returns the kernel's
     row, timed at the prover diagonals, and the set of shape keys compared."""
-    import math
-
     from mental_poker_tpu_torch.ops.cuda import msm as cuda_msm
     from mental_poker_tpu_torch.ops.curve import bls12_377_g1, stark_curve
     from mental_poker_tpu_torch.ops.msm import FixedBaseTable, split_factor
@@ -788,20 +853,23 @@ def chunked_phase(dev, g, shapes) -> tuple:
 
     stark = stark_curve()
     bls = bls12_377_g1()
-    bls_table = FixedBaseTable(bls, bls.host.rand_point(GameRng(9).rng), 4, dev)
+    bls_base = bls.host.rand_point(GameRng(9).rng)
+    bls_table = FixedBaseTable(bls, bls_base, 4, dev)
     cases = []
     for name, S0, N0 in shapes:
         F = split_factor(S0, N0, NC)
-        cases.append((f"Stark {name} at nc = {NC}", stark, g.enc.gen_table, S0 * F, -(-N0 // F), NC))
-    cases += [("Stark", stark, g.enc.gen_table, 3, 5, 4),
-              ("BLS12-377", bls, bls_table, 256, 10, NC),
-              ("BLS12-377", bls, bls_table, 2, 19, NC)]
-    compared, diagonals = set(), None
-    for i, (label, cv, table, S, N, nc) in enumerate(cases):
-        key, inputs = chunked_check(dev, cv, table, S, N, nc, 31 + 2 * i, label)
+        cases.append((f"Stark {name} at nc = {NC}", stark, g.generator, g.enc.gen_table, S0 * F, -(-N0 // F), NC))
+    cases += [("Stark", stark, g.generator, g.enc.gen_table, 3, 5, 4),
+              ("BLS12-377", bls, bls_base, bls_table, 256, 10, NC),
+              ("BLS12-377", bls, bls_base, bls_table, 2, 19, NC)]
+    compared, diagonals, b1 = set(), None, []
+    for i, (label, cv, base, table, S, N, nc) in enumerate(cases):
+        key, inputs = chunked_check(dev, cv, base, table, S, N, nc, 31 + 2 * i, label)
         compared.add(key)
         if label.startswith("Stark prover"):
             diagonals = (cv, *inputs, nc)
+        elif "at B=1" in label:
+            b1.append((cv, *inputs, nc))
 
     cv, P, k, nc = diagonals
     S, N = k.shape[0], k.shape[1]
@@ -809,7 +877,8 @@ def chunked_phase(dev, g, shapes) -> tuple:
     W = cuda_msm.num_windows(cv)
     NB = -(-N // nc)
     ms = cuda_ms(lambda: cuda_msm.msm_chunked(cv, P, k, nc), 10, 2)
-    dms = kernel_ms(lambda: cuda_msm.msm_chunked(cv, P, k, nc), ("msm_table_kernel",) + KERNEL_FUNCTIONS["msm_chunked"])
+    split = kernel_ms_by(lambda: cuda_msm.msm_chunked(cv, P, k, nc), CHUNKED_SPLIT)
+    dms = sum(split.values())
     plain = cuda_ms(lambda: cuda_msm.msm_chunked_plain(cv, P, k, nc), 1, 0)
     lanes1 = cuda_ms(lambda: cuda_msm.msm_lanes(cv, P, k, nc=1), 10, 2)
     lanes8 = cuda_ms(lambda: cuda_msm.msm_lanes(cv, P, k, nc=nc), 10, 2)
@@ -818,14 +887,29 @@ def chunked_phase(dev, g, shapes) -> tuple:
     # additions are the schedule's, not the function's
     adds = S * N * ((1 << cuda_msm.WINDOW) - 2) + S * W * N
     bms, by = bound(adds * ADD_PRODUCTS * word_products(L) * 2, (S * N * (3 * L + Lk) + W * S * 3 * L) * 4)
-    chain_adds = (1 << cuda_msm.WINDOW) - 2 + NB * (math.ceil(math.log2(nc)) + 1)
+    # the dependent chain of one window: its point's table (one thread of
+    # the table kernel), then NB chunks of NC additions (NC - 1 in the tree
+    # and the accumulate) in the window kernel's thread
+    chain_adds = (1 << cuda_msm.WINDOW) - 2 + NB * nc
     chain_ms = chain_adds * ADD_PRODUCTS * word_products(L) * 2 / SM_CLOCK_HZ * 1e3
-    log(f"msm_chunked [S={S}, N={N}, NC={nc}]: {ms:.3f} ms (device {dms:.4f} ms), plain {plain:.1f} ms, bound {bms:.4f} ms ({by}; "
+    log(f"msm_chunked [S={S}, N={N}, NC={nc}]: {ms:.3f} ms (device {dms:.4f} ms: table kernel "
+        f"{split['table']:.4f} ms, window kernel {split['window']:.4f} ms), plain {plain:.1f} ms, bound {bms:.4f} ms ({by}; "
         f"{S * N * ((1 << cuda_msm.WINDOW) - 2)} table and {S * W * N} window additions); "
         f"one window's chain of {chain_adds} additions at one IMAD per clock: {chain_ms:.4f} ms; "
         f"msm_lanes at nc = 1 {lanes1:.3f} ms, at nc = {nc} (chunked + fold) {lanes8:.3f} ms")
-    row = dict(max_abs_err=0.0, ms=ms, device_ms=dms, plain_ms=plain, bound_ms=bms, bound_by=by, chain_ms=chain_ms,
-               msm_lanes_nc1_ms=lanes1, msm_lanes_nc8_ms=lanes8,
+    # the B=1 verifier's shapes at nc = 8: a window's chain is one chunk of
+    # at most 8 additions after the table's 14
+    by_b1 = {}
+    for cv1, P1, k1, nc1 in b1:
+        S1, N1 = k1.shape[0], k1.shape[1]
+        ms1 = cuda_ms(lambda: cuda_msm.msm_chunked(cv1, P1, k1, nc1), 10, 2)
+        split1 = kernel_ms_by(lambda: cuda_msm.msm_chunked(cv1, P1, k1, nc1), CHUNKED_SPLIT)
+        by_b1[f"S={S1}, N={N1}, NC={min(nc1, N1)}"] = dict(ms=ms1, **{f"{k_}_device_ms": v for k_, v in split1.items()})
+        log(f"msm_chunked B=1 verifier [S={S1}, N={N1}, NC={min(nc1, N1)}]: {ms1:.3f} ms (device: table kernel "
+            f"{split1['table']:.4f} ms, window kernel {split1['window']:.4f} ms)")
+    row = dict(max_abs_err=0.0, ms=ms, device_ms=dms, table_device_ms=split["table"],
+               window_device_ms=split["window"], plain_ms=plain, bound_ms=bms, bound_by=by, chain_ms=chain_ms,
+               msm_lanes_nc1_ms=lanes1, msm_lanes_nc8_ms=lanes8, ms_b1=by_b1,
                shape=f"Stark prover diagonals: S={S}, N={N}, NC={nc}")
     return row, compared
 
@@ -886,11 +970,12 @@ def sweep_phase(dev, compared: set):
                 raise AssertionError(f"the sweep point ({m}, {n}) launched the nc = 1 MSM kernel at msm_nc = {NC}")
             rows.append(row)
     bls = bls12_377_g1()
-    table = FixedBaseTable(bls, bls.host.rand_point(GameRng(9).rng), 4, dev)
+    base = bls.host.rand_point(GameRng(9).rng)
+    table = FixedBaseTable(bls, base, 4, dev)
     log(f"sweep: the chunked kernel ran at {len(seen)} shapes, {len(seen - compared)} not compared in phase 2d")
     for i, (curve, S, N, nc) in enumerate(sorted(seen - compared)):
         require(curve == bls.host.name, curve)
-        chunked_check(dev, bls, table, S, N, nc, 101 + 2 * i, "BLS12-377 sweep", host_statements=1)
+        chunked_check(dev, bls, base, table, S, N, nc, 101 + 2 * i, "BLS12-377 sweep", host=(0,))
     return rows, sum(r["launches"]["msm_chunked"] for r in rows)
 
 

@@ -38,12 +38,20 @@ The chunked kernel (`msm_chunked`, source `csrc/msm_chunked.cu`) replaces
   element carried up), one accumulate per step. `msm_lanes` folds the sums
   with the fold kernel (`ops/cuda/curve.py::fold_windows`).
 - What bounds it on the H100: integer multiply-adds, 14 table additions per
-  point and NB * NC additions per window; one window's dependent chain is NB
-  steps of ceil(log2 NC) + 1 additions instead of N.
+  point and NB * NC additions per window (the tree's NC - 1 and one
+  accumulate per chunk, pad slots included). A TPU level's additions are
+  independent; a lane per chunk slot would leave half the lanes idle at
+  each level of the tree.
 - What the design does about it: the tables are built by `msm.cu`'s table
-  kernel (`csrc/msm_table.cuh`); then one thread per (statement, window,
-  chunk slot), 128 / NC windows of one statement to a block, runs the tree
-  through shared memory. The window sums go out, so the fold chain runs once
+  kernel (`csrc/msm_table.cuh`); then one thread per (statement, window),
+  two statements to a block of 2 W threads, walks its window's chunks in
+  order and evaluates each chunk's tree in post-order on a small stack in
+  shared memory (slot values pushed left to right, the two newest partial
+  sums merged while they cover blocks of one size, the rest folded from the
+  newest down at the chunk's end), which is the TPU's pairing with its odd
+  carry for every NC. Every lane adds at every step and no barrier is
+  waited on. One window's dependent chain is 14 table additions, then
+  NB * NC additions. The window sums go out, so the fold chain runs once
   per statement in the fold kernel.
 
 `msm_chunked_plain` runs the TPU schedule (identity window sums, identity for

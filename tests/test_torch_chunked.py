@@ -15,6 +15,11 @@ bigints.
   narrowest combos at nc = 8, N = 1 (NC = 1, no tree) and N = 4 (NC = 4).
 - The staged (2, 4) proof made with `msm_nc = 4` equals the `msm_nc = 1`
   proof leaf for leaf.
+- The window kernel's walk (`csrc/msm_chunked.cu`: one thread per window,
+  each chunk's tree evaluated in post-order on a stack), written out in
+  Python over expression trees, builds the same expression as the JAX
+  kernel's level-by-level pairing for every NC from 1 to 8, with and
+  without pad slots, in NB * NC additions.
 
 Tolerance: exact equality of field integers.
 """
@@ -251,3 +256,79 @@ def test_staged_proof_same_at_nc4(monkeypatch):
     assert len(proofs[0]) == len(proofs[1]) == 56
     for a, b in zip(*proofs):
         assert torch.equal(a, b)
+
+
+def _kernel_walk(chunks):
+    """`msm_chunked_window_kernel`'s loop, statement for statement, over
+    expressions: a leaf is a point index (or "O", the identity of a pad slot
+    and of the window sum's start) and an addition is the ordered pair
+    (left, right). `stack` has the kernel's two shared-memory slots."""
+    NC = len(chunks[0])
+    acc = cur = "O"
+    adds = 0
+    for chunk in chunks:
+        nxt = sp = pending = 0
+        stack = [None, None]
+        for _ in range(NC):
+            paired = False
+            if pending > 0:
+                pending -= 1
+                sp -= 1
+                e = stack[sp]
+                paired = True
+            elif nxt < NC:
+                if nxt > 0:
+                    stack[sp] = cur
+                    sp += 1
+                cur = chunk[nxt]
+                nxt += 1
+                if nxt < NC:
+                    e = cur
+                    cur = chunk[nxt]
+                    nxt += 1
+                    pending = (nxt & -nxt).bit_length() - 2  # __ffs(next) - 2
+                    paired = True
+            if not paired:
+                if sp > 0:
+                    sp -= 1
+                    e = stack[sp]
+                else:
+                    e = acc
+            cur = (e, cur)
+            adds += 1
+        acc = cur
+    return acc, adds
+
+
+def _level_pairing(chunks):
+    """`mental_poker_tpu/ops/pallas/msm.py::_msm_kernel_chunked`'s reduction
+    of each chunk (the `while len(sel) > 1` loop: pairs left to right, an
+    odd element carried up), then one accumulate into the window sum."""
+    acc = "O"
+    for sel in chunks:
+        sel = list(sel)
+        while len(sel) > 1:
+            nxt = [(sel[i], sel[i + 1]) for i in range(0, len(sel) - 1, 2)]
+            if len(sel) % 2:
+                nxt.append(sel[-1])
+            sel = nxt
+        acc = (acc, sel[0])
+    return acc
+
+
+@pytest.mark.parametrize("pad", [False, True], ids=["N=3NC", "N=2NC-1"])
+@pytest.mark.parametrize("nc", range(1, cuda_msm.CHUNK_MAX + 1))
+def test_kernel_walk_equals_level_pairing(nc, pad):
+    N = 2 * nc - 1 if pad else 3 * nc
+    NB = -(-N // nc)
+    slots = [i if i < N else "O" for i in range(NB * nc)]
+    chunks = [slots[j * nc:(j + 1) * nc] for j in range(NB)]
+    walked, adds = _kernel_walk(chunks)
+    assert walked == _level_pairing(chunks)
+    assert adds == NB * nc
+    first = walked
+    for _ in range(NB - 1):
+        first = first[0]
+    assert first[0] == "O"  # the window sum starts at the identity
+    if nc == 7:
+        assert first[1] == (((0, 1), (2, 3)), ((4, 5), 6))

@@ -126,19 +126,22 @@ def test_fold_windows_kernel_equals_plain(dev, curve):
         cuda_curve.fold_windows(cv, PointP(*(t[:5] for t in S)), cuda_curve.FOLD_WINDOW)  # W not built in
 
 
-@pytest.mark.parametrize("curve,S,N,nc", [(stark_curve, 64, 52, 8), (stark_curve, 3, 5, 4), (bls12_377_g1, 16, 10, 8)])
+@pytest.mark.parametrize("curve,S,N,nc", [(stark_curve, 64, 52, 8), (stark_curve, 3, 5, 4), (bls12_377_g1, 16, 10, 8),
+                                          (stark_curve, 1, 5, 3), (bls12_377_g1, 33, 5, 3)])
 def test_msm_chunked_kernel_equals_plain(dev, curve, S, N, nc):
     """The window sums, limb for limb, with N % NC != 0 (pad slots), the
-    scalars 0, 1 and q - 1 and an identity point among the inputs."""
+    scalars 0, 1 and q - 1 and an identity point among the inputs (the
+    last two in statement 1 where there is one). S = 1 and S = 33 leave the
+    last block of two statements half empty."""
     cv = curve()
     P = PointP(*(t.reshape(S, N, -1).clone() for t in _points(cv, S * N, 6, dev)))
     q = cv.host.order
     k = torch.as_tensor(GameRng(7).scalar_limbs(q, (S, N), cv.fr.L).astype(np.int32), device=dev)
     k[0, 0] = 0
     k[0, 1] = cv.fr.small_int_limbs(1, dev)
-    k[1, 2] = torch.as_tensor(ints_to_limbs([q - 1], cv.fr.L)[0].astype(np.int32), device=dev)
+    k[min(1, S - 1), 2] = torch.as_tensor(ints_to_limbs([q - 1], cv.fr.L)[0].astype(np.int32), device=dev)
     for t, v in zip(P, cv.identity((), dev)):
-        t[1, 0] = v
+        t[min(1, S - 1), 0] = v
     got = cuda_msm.msm_chunked(cv, P, k, nc)
     want = cuda_msm.msm_chunked_plain(cv, P, k, nc)
     assert got[0].shape == (cuda_msm.num_windows(cv), S, cv.fq.L)
