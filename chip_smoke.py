@@ -4,7 +4,7 @@
 Run from the repository root on a machine with one CUDA card and nvcc:
 
     python3 chip_smoke.py                 # the full run
-    python3 chip_smoke.py --profile DIR   # also trace one B=128 prove+verify
+    python3 chip_smoke.py --profile DIR   # also trace one B=128 prove+verify and one multigame flow
 
 Phases (every failure exits non-zero; nothing is caught and ignored):
 
@@ -45,9 +45,10 @@ Phases (every failure exits non-zero; nothing is caught and ignored):
    five B=128 shapes after the wide split, the verifier's B=1 combos), at
    Stark S = 3, N = 5, NC = 4 and at two BLS12-377 shapes, and at the edges
    of the window kernel's thread mapping on both curves (every NC from 1 to
-   8 at S = 1 and 33, with and without pad slots; S = 2, 3, 31, 32 and
-   1,000 at NC = 8 and 3), window sums limb for limb and their folds
-   against host bigints; timed at the prover diagonals (the table and the
+   8, and NC 9, 16, 33, 52 and 64, where each thread's stack is deeper, at
+   S = 1 and 33, with and without pad slots; S = 2, 3, 31, 32 and 1,000 at
+   NC = 8 and 3), window sums limb for limb and their folds against host
+   bigints; timed at the prover diagonals (the table and the
    window kernel apart) and at the B=1 verifier's shapes; the main path again with
    `msm_nc = 8` (phase 3b: the B=128 proof must equal the nc = 1 proof leaf
    for leaf, with the chunked and fold kernels launched and the lane kernel
@@ -57,6 +58,21 @@ Phases (every failure exits non-zero; nothing is caught and ignored):
    against plain at every shape the sweep launched it at. A chunked launch
    of phase 3b or of the tampered check at a shape phase 2d did not compare
    fails the run.
+7. The port bench's paths (`mental_poker_tpu_torch/bench.py`, sixth
+   slice): the multigame flow at full width (64 games of 8 players at
+   (2, 26): masks, remasks and every player's reveal tokens with
+   Chaum-Pedersen proofs made and verified on the card by
+   `crypto/sigma_device.py`, the cards unmasked), every check true, launch
+   counts and peak device memory read around one flow, `mont_mul` and
+   `point_add` held against their plain versions at every lane count that
+   flow launched them at (phases 2a and 2b cover 65,536 lanes only), one
+   tampered reveal response rejected in its lane alone, games per second
+   over three flows, and the flow at G = 2, P = 3, (2, 2) equal on the card
+   and on the CPU proof tensor for proof tensor (with `--profile DIR`, one
+   more flow traced: device busy time and idle share); the 1,024-point MSM against host bigints;
+   and one 1,024-card deck at (16, 64) proved and verified (a tampered deck
+   rejected), with the per-statement MSM kernel held against its plain
+   version at every shape it ran at there that phase 2c did not compare.
 
 Every phase runs with `msm_nc = 1` (the per-statement MSM kernel) unless it
 says otherwise, whatever `MPTPU_MSM_NC` holds.
@@ -253,14 +269,6 @@ def max_abs_err(a, b) -> float:
     return max(float((x.long() - y.long()).abs().max()) if x.numel() else 0.0 for x, y in zip(a, b))
 
 
-def nvidia_smi() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    )
-    return out.stdout.strip().splitlines()[0]
-
-
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", default=None, help="directory for a torch.profiler table of one batch")
@@ -277,7 +285,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, HERE)
 
-    from mental_poker_tpu_torch import config, params
+    from mental_poker_tpu_torch import bench, config, params
     from mental_poker_tpu_torch.arguments import device_api
     from mental_poker_tpu_torch.crypto import elgamal
     from mental_poker_tpu_torch.crypto.elgamal import Ciphertexts
@@ -292,9 +300,10 @@ def main() -> int:
     from mental_poker_tpu_torch.utils.rand import GameRng, ints_to_limbs
 
     global IMAD_PER_S, SM_CLOCK_HZ
+    started = time.perf_counter()
     dev = torch.device("cuda")
     config.set_config(config.RuntimeConfig(msm_nc=1))  # phases with nc = 8 say so
-    card = nvidia_smi()
+    card = bench.device_name(dev)  # nvidia-smi's name and power limit
     SM_CLOCK_HZ = sm_clock_hz()
     IMAD_PER_S = imad_rate()
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}; "
@@ -341,6 +350,8 @@ def main() -> int:
             raise AssertionError(f"mont_mul {f.name}: kernel differs from plain by {err}")
         log(f"mont_mul {f.name} L={f.L}: 65536 products equal to plain; host bigints agree")
     kernels["mont_mul"] = dict(max_abs_err=errs)
+    elementwise_compared = {("mont_mul", f.name, 65536)
+                            for f in (field_mod.stark_fq(), field_mod.stark_fr(), field_mod.bls12_377_fq())}
 
     # -------------------------------------------- 2b. point_add vs plain
     n_add = 65536
@@ -377,6 +388,7 @@ def main() -> int:
         require(hs[i] == cv.host.add(hp[i], hq[i]), i)
     require(hs[1][2] and hs[3][2], "P + (-P) and O + O must be the identity")
     kernels["point_add"] = dict(max_abs_err=err)
+    elementwise_compared.add(("point_add", cv.host.name, n_add))
     log(f"point_add: {n_add} additions equal to plain (identity, P+(-P), P+P included); host bigints agree")
 
     # -------------------------------------------- 2c. msm_lanes vs plain
@@ -414,7 +426,9 @@ def main() -> int:
             require(hout[s] == acc, (name, s))
         lane_inputs.append((name, pts, kk))
         log(f"msm_lanes {name} [S={S}, N={N}]: equal to plain; host bigints agree")
-    lane_inputs += lanes_edge_phase(dev, g)
+    edge_inputs, lanes_compared = lanes_edge_phase(dev, g)
+    lane_inputs += edge_inputs
+    lanes_compared |= {(cv.host.name, S, N) for _, S, N in shapes}
     kernels["msm_lanes"] = dict(max_abs_err=errs)
 
     # ------------------------------------- 2d. msm_chunked vs plain
@@ -662,6 +676,14 @@ def main() -> int:
     sweep, sweep_launches = sweep_phase(dev, compared)
     kernels["msm_chunked"]["launches_sweep"] = sweep_launches
 
+    # ------------------------------------------------- 7. the bench's paths
+    multigame = multigame_phase(dev, g, elementwise_compared, args.profile)
+    msm1024 = msm1024_phase(dev)
+    deck1024 = deck1024_phase(dev, g, lanes_compared)
+    for k in kernels:
+        kernels[k]["launches_multigame"] = multigame["launches"][k]
+        kernels[k]["launches_deck1024"] = deck1024["launches"][k]
+
     meta = {
         "mont_mul": ("mental_poker_tpu_torch/csrc/field.cu", "mental_poker_tpu/ops/pallas/field.py:128"),
         "point_add": ("mental_poker_tpu_torch/csrc/curve.cu", "mental_poker_tpu/ops/pallas/curve.py:94"),
@@ -672,7 +694,7 @@ def main() -> int:
     extra = ("shape", "launches_b1", "launches_round", "launches_nc8", "launches_sweep", "ms_s128",
              "plain_ms_s128", "bound_ms_s128", "chain_ms", "msm_lanes_nc1_ms", "msm_lanes_nc8_ms",
              "ms_by_shape", "device_ms", "device_ms_s128", "device_ms_b128", "table_device_ms",
-             "window_device_ms", "ms_b1")
+             "window_device_ms", "ms_b1", "launches_multigame", "launches_deck1024")
     rows = []
     for kname, (src, replaces) in meta.items():
         kv = kernels[kname]
@@ -686,7 +708,10 @@ def main() -> int:
                                      f"B={B}, msm_nc={NC}": {"ms": pv8_ms, "pairs_per_s": B / pv8_ms * 1e3},
                                      "B=1": {"ms": pv1_ms, "pairs_per_s": 1e3 / pv1_ms}},
                     "shuffle_argument_2x26_s": arg_s, "round_2x26_4p_4s_s": round_s,
-                    "msm_s1_gather_vs_lanes_ms": engine_ms, "sweep_bls12_377_n300": sweep}))
+                    "msm_s1_gather_vs_lanes_ms": engine_ms, "sweep_bls12_377_n300": sweep,
+                    "multigame_64x8": {k: v for k, v in multigame.items() if k != "launches"},
+                    "msm_1024": msm1024, "deck1024": {k: v for k, v in deck1024.items() if k != "launches"}}))
+    log(f"chip_smoke: {time.perf_counter() - started:.1f} s in all")
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -699,12 +724,12 @@ def main() -> int:
 EDGE_S = (1, 2, 3, 4, 5, 31, 32, 33, 1000)
 
 
-def lanes_edge_phase(dev, g) -> list:
+def lanes_edge_phase(dev, g) -> tuple:
     """2c, edges. `msm_lanes` (nc = 1) against its plain version, limb for
     limb, on both curves at S = 1, N = 1 and at every S of `EDGE_S` but 4 and
     5 with N = 3, points a_i * B of one base B; the first and last statements
     against host bigints, (sum_i k_i a_i) * B. Returns the Stark S = 1, N = 1
-    inputs, for phase 4's times."""
+    inputs, for phase 4's times, and the shape keys (curve, S, N) compared."""
     import numpy as np
     import torch
 
@@ -717,10 +742,11 @@ def lanes_edge_phase(dev, g) -> list:
     bls_base = bls.host.rand_point(GameRng(9).rng)
     cases = ((stark_curve(), g.generator, g.enc.gen_table), (bls, bls_base, FixedBaseTable(bls, bls_base, 4, dev)))
     to_int = lambda v: sum(int(x) << (16 * j) for j, x in enumerate(v))
-    timed = []
+    timed, compared = [], set()
     for cv, base, table in cases:
         q = cv.host.order
         for S, N in [(1, 1)] + [(S, 3) for S in EDGE_S if S not in (4, 5)]:
+            compared.add((cv.host.name, S, N))
             a = GameRng(500 + S + N).scalar_limbs(q, (S, N), cv.fr.L).astype(np.int32)
             k = GameRng(600 + S + N).scalar_limbs(q, (S, N), cv.fr.L).astype(np.int32)
             pts = table.mul(torch.as_tensor(a, device=dev))
@@ -738,7 +764,7 @@ def lanes_edge_phase(dev, g) -> list:
             log(f"msm_lanes {cv.name} [S={S}, N={N}]: equal to plain; statements 0 and {S - 1} agree with host bigints")
             if cv.name == "stark" and S == 1 and N == 1:
                 timed.append(("one statement of one point", pts, kk))
-    return timed
+    return timed, compared
 
 
 def chunked_statement(dev, cv, table, S, N, seed):
@@ -799,20 +825,27 @@ def chunked_check(dev, cv, base, table, S, N, nc, seed, label, host=(0, 1), verb
     for h, s, ks in zip(folded, rows, hk):
         total = sum(sum(int(v) << (16 * j) for j, v in enumerate(ks[i])) * a[s][i] for i in range(N))
         require(h == cv.host.mul(total % cv.host.order, base), (label, S, N, nc, s))
+    NC = cuda_msm.chunk_points(nc, N)
     if verbose:
-        log(f"msm_chunked {label} [S={S}, N={N}, NC={min(nc, N)}]: window sums equal to plain; "
+        log(f"msm_chunked {label} [S={S}, N={N}, NC={NC}]: window sums equal to plain; "
             f"folds of statements {rows} agree with host bigints")
-    return (cv.host.name, S, N, min(nc, N)), (P, k)
+    return (cv.host.name, S, N, NC), (P, k)
+
+
+# NC above 8: a deeper stack of partial sums (three for NC 9-16, up to five
+# for NC 33-64); 52 is the JAX package's largest NC.
+WIDE_NC = (9, 16, 33, 52, 64)
 
 
 def chunked_edge_phase(dev, g) -> set:
     """2d, edges. `msm_chunked` against its plain version (`chunked_check`)
     at the edges of the window kernel's thread mapping (two statements to a
     block of 2 W threads, one chunk tree per thread), on both curves: every
-    NC from 1 to 8 at S = 1 and 33 with N = 3 NC (no pad slot) and
-    N = 2 NC - 1 (pad slots; N = 1 at NC = 1), and S = 2, 3, 31, 32 and
-    1,000 at NC = 8 and 3 with N = 2 NC - 1; the first and last statements
-    of each against host bigints. Returns the shape keys compared."""
+    NC from 1 to 8 and each of `WIDE_NC` at S = 1 and 33 with N = 3 NC (no
+    pad slot) and N = 2 NC - 1 (pad slots; N = 1 at NC = 1), and S = 2, 3,
+    31, 32 and 1,000 at NC = 8 and 3 with N = 2 NC - 1; the first and last
+    statements of each against host bigints. Returns the shape keys
+    compared."""
     from mental_poker_tpu_torch.ops.cuda import msm as cuda_msm
     from mental_poker_tpu_torch.ops.curve import bls12_377_g1, stark_curve
     from mental_poker_tpu_torch.ops.msm import FixedBaseTable
@@ -821,7 +854,7 @@ def chunked_edge_phase(dev, g) -> set:
     bls = bls12_377_g1()
     bls_base = bls.host.rand_point(GameRng(9).rng)
     cases = ((stark_curve(), g.generator, g.enc.gen_table), (bls, bls_base, FixedBaseTable(bls, bls_base, 4, dev)))
-    shapes = [(S, N, nc) for nc in range(1, cuda_msm.CHUNK_MAX + 1) for S in (1, 33) for N in (3 * nc, 2 * nc - 1)]
+    shapes = [(S, N, nc) for nc in (*range(1, 9), *WIDE_NC) for S in (1, 33) for N in (3 * nc, 2 * nc - 1)]
     shapes += [(S, 2 * nc - 1, nc) for nc in (8, 3) for S in (2, 3, 31, 32, 1000)]
     compared = set()
     for cv, base, table in cases:
@@ -830,8 +863,9 @@ def chunked_edge_phase(dev, g) -> set:
             key, _ = chunked_check(dev, cv, base, table, S, N, nc, 200 + 2 * i, f"{cv.host.name} edge",
                                    host=(0, -1), verbose=False)
             compared.add(key)
-        log(f"msm_chunked {cv.host.name} edges: window sums equal to plain at {len(shapes)} shapes (NC 1-8 at "
-            f"S = 1 and 33, N = 3 NC and 2 NC - 1; S = 2, 3, 31, 32, 1000 at NC = 8 and 3, N = 2 NC - 1); "
+        log(f"msm_chunked {cv.host.name} edges: window sums equal to plain at {len(shapes)} shapes (NC 1-8 and "
+            f"{WIDE_NC} at S = 1 and 33, N = 3 NC and 2 NC - 1; S = 2, 3, 31, 32, 1000 at NC = 8 and 3, "
+            f"N = 2 NC - 1); "
             f"first and last statements agree with host bigints; {time.perf_counter() - t0:.1f} s")
     return compared
 
@@ -904,8 +938,9 @@ def chunked_phase(dev, g, shapes) -> tuple:
         S1, N1 = k1.shape[0], k1.shape[1]
         ms1 = cuda_ms(lambda: cuda_msm.msm_chunked(cv1, P1, k1, nc1), 10, 2)
         split1 = kernel_ms_by(lambda: cuda_msm.msm_chunked(cv1, P1, k1, nc1), CHUNKED_SPLIT)
-        by_b1[f"S={S1}, N={N1}, NC={min(nc1, N1)}"] = dict(ms=ms1, **{f"{k_}_device_ms": v for k_, v in split1.items()})
-        log(f"msm_chunked B=1 verifier [S={S1}, N={N1}, NC={min(nc1, N1)}]: {ms1:.3f} ms (device: table kernel "
+        NC1 = cuda_msm.chunk_points(nc1, N1)
+        by_b1[f"S={S1}, N={N1}, NC={NC1}"] = dict(ms=ms1, **{f"{k_}_device_ms": v for k_, v in split1.items()})
+        log(f"msm_chunked B=1 verifier [S={S1}, N={N1}, NC={NC1}]: {ms1:.3f} ms (device: table kernel "
             f"{split1['table']:.4f} ms, window kernel {split1['window']:.4f} ms)")
     row = dict(max_abs_err=0.0, ms=ms, device_ms=dms, table_device_ms=split["table"],
                window_device_ms=split["window"], plain_ms=plain, bound_ms=bms, bound_by=by, chain_ms=chain_ms,
@@ -923,7 +958,7 @@ def chunked_shapes(seen: set):
     launch = cuda_msm.msm_chunked_cuda
 
     def recording(cv, P, k, nc):
-        seen.add((cv.host.name, k.shape[0], k.shape[1], min(nc, k.shape[1])))
+        seen.add((cv.host.name, k.shape[0], k.shape[1], cuda_msm.chunk_points(nc, k.shape[1])))
         return launch(cv, P, k, nc)
 
     cuda_msm.msm_chunked_cuda = recording
@@ -1181,6 +1216,302 @@ def round_phase(dev, n=26, num_shuffles=4):
         if launches[k] <= 0:
             raise AssertionError(f"the round did not launch kernel {k}")
     return secs, launches
+
+
+@contextlib.contextmanager
+def elementwise_lanes(seen: set):
+    """Record in `seen` a key (kernel, field or curve, lanes) for every
+    launch of the `mont_mul` and `point_add` kernels made inside the block."""
+    from mental_poker_tpu_torch.ops.cuda import curve as cuda_curve
+    from mental_poker_tpu_torch.ops.cuda import field as cuda_field
+
+    mont_mul, point_add = cuda_field.mont_mul_cuda, cuda_curve.point_add_cuda
+
+    def mont_mul_recording(fld, a, b):
+        seen.add(("mont_mul", fld.name, a.numel() // fld.L))
+        return mont_mul(fld, a, b)
+
+    def point_add_recording(cv, P, Q):
+        seen.add(("point_add", cv.host.name, P[0].numel() // P[0].shape[-1]))
+        return point_add(cv, P, Q)
+
+    cuda_field.mont_mul_cuda, cuda_curve.point_add_cuda = mont_mul_recording, point_add_recording
+    try:
+        yield seen
+    finally:
+        cuda_field.mont_mul_cuda, cuda_curve.point_add_cuda = mont_mul, point_add
+
+
+def elementwise_check(dev, g, key, seed) -> None:
+    """`mont_mul` or `point_add` (by `key`, as `elementwise_lanes` records
+    it) against its plain version at that many lanes on the card, limb for
+    limb. mont_mul: uniform reduced operands with 0, 1 and p - 1 at the
+    front. point_add: points k G of the Stark generator's table with
+    identity + P, P + (-P) and P + P at the front."""
+    import numpy as np
+    import torch
+
+    from mental_poker_tpu_torch.ops import field as field_mod
+    from mental_poker_tpu_torch.ops.cuda import curve as cuda_curve
+    from mental_poker_tpu_torch.ops.cuda import field as cuda_field
+    from mental_poker_tpu_torch.ops.curve import PointP
+    from mental_poker_tpu_torch.utils.rand import GameRng
+
+    kernel, name, n = key
+    npr = np.random.default_rng(seed)
+    if kernel == "mont_mul":
+        fields = {f.name: f for f in (field_mod.stark_fq(), field_mod.stark_fr(), field_mod.bls12_377_fq())}
+        f = fields[name]
+        ops = []
+        for _ in range(2):
+            vals = ([0, 1, f.p - 1] + [int.from_bytes(npr.bytes(48), "little") % f.p for _ in range(n)])[:n]
+            ops.append(f.tensor(f.from_int_array(vals), dev))
+        got, want = [cuda_field.mont_mul(f, *ops)], [cuda_field.mont_mul_plain(f, *ops)]
+    else:
+        cv = g.cv
+        require(name == cv.host.name, key)
+        q = cv.host.order
+        k1, k2 = (torch.as_tensor(GameRng(seed + i).scalar_limbs(q, (n,), cv.fr.L).astype(np.int32), device=dev)
+                  for i in range(2))
+        P, Q = g.enc.gen_table.mul(k1), g.enc.gen_table.mul(k2)
+        idx = torch.arange(n, device=dev)[:, None]
+        edges = ((0, cv.identity((n,), dev), Q), (1, cv.neg(P), P), (2, P, P))  # (lane, left, right)
+        for i, A, B_ in edges[:n]:
+            P = PointP(*(torch.where(idx == i, a, x) for a, x in zip(A, P)))
+            Q = PointP(*(torch.where(idx == i, b, y) for b, y in zip(B_, Q)))
+        got, want = cuda_curve.point_add(cv, P, Q), cuda_curve.point_add_plain(cv, P, Q)
+    torch.cuda.synchronize()
+    err = max_abs_err(got, want)
+    if err:
+        raise AssertionError(f"{kernel} {name} at {n} lanes: kernel differs from plain by {err}")
+
+
+def multigame_phase(dev, g, elementwise_compared: set, profile_dir=None, G=64, P=8, m=2, n=26) -> dict:
+    """7a. The bench's multigame flow at full width (`bench.multigame_flow`:
+    G games of P players at (m, n), M = G P m n reveal statements): one warm
+    flow; one flow with launch counts and peak device memory read around it,
+    whose four checks must hold in every lane and which must launch
+    `point_add` and `mont_mul` and no MSM kernel, and both kernels against
+    their plain versions (`elementwise_check`) at every lane count that
+    flow launched them at and `elementwise_compared` does not hold; one
+    reveal response s ^ 1, which `cp_verify_dev` must reject in that lane
+    alone; games per second as the median of three timed flows; with
+    `profile_dir`, one more flow traced by torch.profiler, its device time
+    by kernel, its device busy time and its idle share against the median
+    flow. Then the flow at G = 2, P = 3, (2, 2) on the card and on the CPU
+    (the plain versions): every proof tensor equal, limb for limb."""
+    import torch
+
+    from mental_poker_tpu_torch import bench
+    from mental_poker_tpu_torch.crypto import sigma_device, transcript_dev
+    from mental_poker_tpu_torch.crypto.transcript import REVEAL_RNG_SEED
+    from mental_poker_tpu_torch.ops import cuda as cuda_ops
+
+    t0 = time.perf_counter()
+    mg = bench.multigame_setup(G, P, m, n, dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    bench.multigame_flow(mg)
+    torch.cuda.synchronize()
+    lanes = set()
+    cuda_ops.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with elementwise_lanes(lanes):
+        out = bench.multigame_flow(mg)
+        torch.cuda.synchronize()
+    counted_s = time.perf_counter() - t0
+    launches = dict(cuda_ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    ok = [bool(c.all()) for c in out.checks]
+    M = out.checks[2].shape[0]
+    log(f"multigame G={G}, P={P}, ({m}, {n}), M={M} reveal statements: checks (mask, remask, reveal, unmask) {ok}; "
+        f"one flow {counted_s:.3f} s; launches {launches}; peak device memory {peak} bytes; set-up {setup_s:.2f} s")
+    require(all(ok), "a multigame check failed")
+    for k in ("point_add", "mont_mul"):
+        require(launches[k] > 0, f"the multigame flow did not launch {k}")
+    for k in ("msm_lanes", "msm_chunked", "fold_windows"):
+        require(launches[k] == 0, f"the multigame flow launched the MSM kernel {k}")
+    new = sorted(lanes - elementwise_compared)
+    t0 = time.perf_counter()
+    for i, key in enumerate(new):
+        elementwise_check(dev, g, key, 601 + 2 * i)
+    log(f"multigame: mont_mul and point_add equal to plain at every new lane count of the flow "
+        f"({len(new)} of {len(lanes)}: {new}; {time.perf_counter() - t0:.1f} s)")
+
+    lane = M // 3 + 1
+    prf3 = out.proofs[2]
+    s = prf3.s.clone()
+    s[lane, 0] ^= 1
+    cv = mg.cv
+    bad = sigma_device.cp_verify_dev(cv, transcript_dev.init(REVEAL_RNG_SEED, (M,), dev), *out.reveal,
+                                     prf3._replace(s=s))
+    rejected = (~bad).nonzero().flatten().tolist()
+    require(rejected == [lane], f"the tampered reveal response was rejected in lanes {rejected[:8]}, not [{lane}]")
+    log(f"multigame: reveal response s ^ 1 in lane {lane} of {M} rejected in that lane alone")
+
+    runs = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        res = bench.multigame_flow(mg)
+        require(all(bool(c.all()) for c in res.checks), "a multigame check failed")
+        torch.cuda.synchronize()
+        runs.append(time.perf_counter() - t0)
+    med = sorted(runs)[1]
+    log(f"multigame: {G / med:.3f} games/s (median of runs {[round(r, 3) for r in runs]} s)")
+    trace = {}
+    if profile_dir:
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            bench.multigame_flow(mg)
+            torch.cuda.synchronize()
+            traced_s = time.perf_counter() - t0
+        averages = prof.key_averages()
+        with open(os.path.join(profile_dir, "profile_multigame.txt"), "w") as fh:
+            fh.write(averages.table(sort_by="device_time_total", row_limit=30))
+        by_kernel = kernel_device_ms(averages)
+        device_launches = sum(ev.count for ev in averages if ev.device_type == DeviceType.CUDA)
+        busy_s = by_kernel["all"] / 1e3
+        trace = dict(device_ms_by_kernel=by_kernel, device_launches=device_launches, traced_flow_s=traced_s,
+                     idle_share_of_median=1 - busy_s / med, idle_share_of_traced=1 - busy_s / traced_s)
+        log(f"multigame trace: device busy {by_kernel['all']:.3f} ms ({device_launches} device launches) in a "
+            f"{traced_s:.3f} s traced flow; idle {trace['idle_share_of_median']:.4f} of the median flow, "
+            f"{trace['idle_share_of_traced']:.4f} of the traced one; by kernel (ms): {by_kernel}")
+
+    small = []
+    before = torch.get_num_threads()
+    for d in (dev, torch.device("cpu")):
+        torch.set_num_threads(1 if d.type == "cpu" else before)
+        with torch.inference_mode():
+            res = bench.multigame_flow(bench.multigame_setup(2, 3, 2, 2, d))
+        require(all(bool(c.all()) for c in res.checks), f"a small multigame check failed on {d}")
+        small.append([t.cpu() for t in _leaves(res.proofs)])
+    torch.set_num_threads(before)
+    diff = [i for i, (a, b) in enumerate(zip(*small)) if not torch.equal(a, b)]
+    require(not diff and len(small[0]) == 21, f"the card's small multigame proofs differ from the CPU's at {diff}")
+    log(f"multigame G=2, P=3, (2, 2): the card's proofs equal the CPU plain versions' ({len(small[0])} tensors)")
+    return dict(games_per_s=G / med, runs_s=runs, counted_flow_s=counted_s, peak_memory_bytes=peak,
+                reveal_statements=M, elementwise_lanes=sorted(lanes), launches=launches, **trace)
+
+
+def msm1024_phase(dev, npts=1024) -> dict:
+    """7b. The bench's msm mode once (`bench.msm_setup`: 1,024 Stark points
+    from `GameRng(7)`): the sum equals the host bigints' sum of k_i P_i;
+    then timed (CUDA events, median of five)."""
+    from mental_poker_tpu_torch import bench
+    from mental_poker_tpu_torch.ops import msm as msm_mod
+    from mental_poker_tpu_torch.ops.curve import PointP
+    from mental_poker_tpu_torch.utils.rand import limbs_to_int
+
+    cv, pts, k = bench.msm_setup(npts, dev)
+    out = msm_mod.msm(cv, pts, k)
+    host = cv.host
+    acc = host.identity
+    for p, kk in zip(cv.to_host_points(pts), k.cpu().numpy()):
+        acc = host.add(acc, host.mul(limbs_to_int(kk), p))
+    require(cv.to_host_points(PointP(*(t[None] for t in out))) == [acc], "msm_1024 differs from the host sum")
+    ms = cuda_ms(lambda: msm_mod.msm(cv, pts, k), 5, 1)
+    log(f"msm of {npts} points: equal to the host bigints' sum; {ms:.3f} ms, {npts / ms * 1e3:.0f} points/s")
+    return dict(ms=ms, points_per_s=npts / ms * 1e3)
+
+
+@contextlib.contextmanager
+def lanes_shapes(seen: set):
+    """Record in `seen` the shape key (curve, S, N) of every launch of the
+    per-statement MSM kernel made inside the block."""
+    from mental_poker_tpu_torch.ops.cuda import msm as cuda_msm
+
+    launch = cuda_msm.msm_lanes_cuda
+
+    def recording(cv, P, k):
+        seen.add((cv.host.name, k.shape[0], k.shape[1]))
+        return launch(cv, P, k)
+
+    cuda_msm.msm_lanes_cuda = recording
+    try:
+        yield seen
+    finally:
+        cuda_msm.msm_lanes_cuda = launch
+
+
+def lanes_check(dev, cv, base, table, S, N, seed, label):
+    """`msm_lanes` (nc = 1) against `msm_lanes_plain` at one shape, limb for
+    limb, on `chunked_statement` inputs; statements 0 and S - 1 against host
+    bigints, (sum_i k_i a_i) * base."""
+    import torch
+
+    from mental_poker_tpu_torch.ops.cuda import msm as cuda_msm
+    from mental_poker_tpu_torch.ops.curve import PointP
+
+    P, k, a = chunked_statement(dev, cv, table, S, N, seed)
+    got = cuda_msm.msm_lanes(cv, P, k, nc=1)
+    want = cuda_msm.msm_lanes_plain(cv, P, k)
+    torch.cuda.synchronize()
+    err = max_abs_err(got, want)
+    if err:
+        raise AssertionError(f"msm_lanes {label} [S={S}, N={N}]: kernel differs from plain by {err}")
+    rows = sorted({0, S - 1})
+    hk = k[rows].cpu().numpy()
+    for h, s, ks in zip(cv.to_host_points(PointP(*(t[rows] for t in got))), rows, hk):
+        total = sum(sum(int(v) << (16 * j) for j, v in enumerate(ks[i])) * a[s][i] for i in range(N))
+        require(h == cv.host.mul(total % cv.host.order, base), (label, S, N, s))
+    log(f"msm_lanes {label} [S={S}, N={N}]: equal to plain; statements {rows} agree with host bigints")
+
+
+def deck1024_phase(dev, g, lanes_compared: set, m=16, n=64) -> dict:
+    """7c. The bench's deck1024 mode once (`bench.shuffle_setup`: one
+    1,024-card deck at (16, 64), B = 1, `GameRng(99)`, window-8 tables):
+    prove and verify with launch counts read around them and every shape of
+    the per-statement MSM kernel recorded; a deck with two output cards
+    swapped fails with "Hadamard Product (5.1)"; then the kernel against
+    its plain version (`lanes_check`) at every recorded shape phase 2c did
+    not compare."""
+    import torch
+
+    from mental_poker_tpu_torch import bench, config
+    from mental_poker_tpu_torch.arguments import device_api
+    from mental_poker_tpu_torch.crypto.elgamal import Ciphertexts
+    from mental_poker_tpu_torch.crypto.errors import HADAMARD, ProofVerificationError
+    from mental_poker_tpu_torch.ops import cuda as cuda_ops
+    from mental_poker_tpu_torch.ops.curve import map_point
+
+    t0 = time.perf_counter()
+    with config.override(fixed_window_bits=WINDOW):
+        sb = bench.shuffle_setup(m, n, 1, 99, b"b", dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    seen = set()
+    cuda_ops.reset_launches()
+    t0 = time.perf_counter()
+    with lanes_shapes(seen):
+        proof, checks = sb.prove_verify()
+        ok = [bool(c.all()) for c in checks]
+    pv_s = time.perf_counter() - t0
+    launches = dict(cuda_ops.LAUNCHES)
+    log(f"deck1024 ({m}, {n}), B=1: prove+verify {pv_s:.2f} s (the first at this shape); checks "
+        f"{dict(zip(checks._fields, ok))}; launches {launches}; set-up {setup_s:.2f} s")
+    require(all(ok), "the verifier rejected the honest 1,024-card deck")
+    for k in STAGED_KERNELS:
+        require(launches[k] > 0, f"deck1024 did not launch kernel {k}")
+    N = m * n
+    swap = [1, 0] + list(range(2, N))
+    bad = Ciphertexts(map_point(lambda t: t[:, swap], sb.shuffled.c0), sb.shuffled.c1)
+    try:
+        device_api.raise_by_flags(device_api.verify_shuffle(sb.cv, m, n, sb.keys, sb.deck, bad, proof))
+    except ProofVerificationError as e:
+        require(e.name == HADAMARD, f"the tampered 1,024-card deck failed with {e.name!r}, expected {HADAMARD!r}")
+        log(f"deck1024: tampered deck rejected: {e}")
+    else:
+        raise AssertionError("a tampered 1,024-card deck was accepted")
+    new = sorted(seen - lanes_compared)
+    log(f"deck1024: the per-statement MSM kernel ran at shapes {sorted(seen)}; {len(new)} not compared in phase 2c")
+    for i, (curve, S, Nm) in enumerate(new):
+        require(curve == g.cv.host.name, curve)
+        lanes_check(dev, g.cv, g.generator, g.enc.gen_table, S, Nm, 401 + 2 * i, "deck1024 shape")
+    return dict(prove_verify_s=pv_s, shapes=sorted(seen), launches=launches)
 
 
 def _leaves(tree):

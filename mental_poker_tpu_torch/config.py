@@ -13,11 +13,15 @@ Only the knobs the port reads are kept:
 - `fixed_window_bits` (`MPTPU_FIXED_WINDOW`, default 4): the window of the
   fixed-base tables that `DLCards`, its ElGamal and Pedersen schemes and
   `FixedBaseTable` / `FixedBaseMSM` build when no window is given.
+- `bench_mode` (`MPTPU_BENCH_MODE`: shuffle52, msm, deck1024 or
+  multigame): the mode of the port's bench
+  (`python -m mental_poker_tpu_torch.bench`), as in the JAX package. The
+  bench's sizes and repetitions are arguments of its mode functions.
 
 The JAX package's TPU knobs (`pallas`, `pallas_msm`, `fuse_b_max`, the
-`sol_*` harness, `cache_dir`) have nothing to select here; its `bench_*`
-fields come with the port's bench, and its per-game `ProtocolConfig` with
-the first caller that needs it (the parallel layer or the bench).
+`sol_*` harness, `cache_dir`) have nothing to select here; its per-game
+`ProtocolConfig` comes with the first caller that needs it (the parallel
+layer).
 """
 
 from __future__ import annotations
@@ -32,7 +36,8 @@ class RuntimeConfig:
     """Process-wide runtime knobs (env-backed, read once)."""
 
     msm_nc: int = 1  # MPTPU_MSM_NC
-    fixed_window_bits: int = 4  # MPTPU_FIXED_WINDOW
+    fixed_window_bits: int = 4  # MPTPU_FIXED_WINDOW (the bench sets 8)
+    bench_mode: str = "shuffle52"  # MPTPU_BENCH_MODE
 
     @classmethod
     def from_env(cls) -> "RuntimeConfig":
@@ -40,6 +45,7 @@ class RuntimeConfig:
         return cls(
             msm_nc=int(os.environ.get("MPTPU_MSM_NC") or d.msm_nc),
             fixed_window_bits=int(os.environ.get("MPTPU_FIXED_WINDOW") or d.fixed_window_bits),
+            bench_mode=os.environ.get("MPTPU_BENCH_MODE") or d.bench_mode,
         )
 
 

@@ -38,26 +38,38 @@
 // waits on a barrier: a window's dependent chain is 14 table additions and
 // then NB * NC additions (NC - 1 in each tree and one accumulate per chunk),
 // where a lane per slot would have NB * (ceil(log2 NC) + 1). The running
-// value and the operand live in registers; the two partial sums a chunk of
-// up to 8 slots can leave waiting and the window sum live in shared memory,
-// thread-private, with the thread index innermost so that a warp's 32
-// accesses of a word fall on 32 banks. __launch_bounds__ caps the registers
-// so that four blocks (16 warps) fit on an SM for Stark. Points, scalars and
+// value and the operand live in registers; the partial sums a chunk can
+// leave waiting (two for up to 8 slots, five for up to 64) and the window
+// sum live in shared memory, thread-private, with the thread index
+// innermost so that a warp's 32 accesses of a word fall on 32 banks.
+// __launch_bounds__ caps the registers so that four blocks (16 warps) fit
+// on an SM for Stark at NC <= 8. Points, scalars and
 // window sums cross device memory once; the tables are written once and read
 // by the window threads of their statement, mostly from L2.
 //
 // Every addition has the TPU kernel's operands in its order, so the window
 // sums equal the plain PyTorch version (ops/cuda/msm.py::msm_chunked_plain)
-// limb for limb. NC is a runtime argument from 1 to kMaxNC = 8.
+// limb for limb. NC is a runtime argument from 1 to kMaxNC = 64, which
+// covers the JAX package's largest NC (52, its most points per call).
+//
+// A chunk of up to 2^(k+1) slots leaves at most k partial sums waiting, so
+// the launch sizes each thread's shared memory for NC: k + 1 points (the
+// window sum after the k partial sums). NC 5-8 takes three points a thread
+// (36,288 bytes a block on Stark, four blocks an SM), NC 33-64 six (72,576
+// bytes on Stark, three blocks an SM; 110,592 on BLS12-377, two).
 #include "msm_table.cuh"
 
-constexpr int kMaxNC = 8;
+constexpr int kMaxNC = 64;
 constexpr int kStatements = 2;    // statements per block
 constexpr int kMaxW = 64;         // windows a statement may have: blocks of at most 128 threads
-constexpr int kStack = 2;         // partial sums a chunk of kMaxNC slots leaves waiting
-constexpr int kAcc = kStack;      // the shared-memory slot of the window sum
-constexpr int kSlots = kStack + 1;
-static_assert(1 << (kStack + 1) == kMaxNC, "a chunk of 2^(k+1) slots leaves at most k partial sums waiting");
+
+// Partial sums a chunk of NC slots can leave waiting: k = ceil(log2 NC) - 1
+// (none for NC <= 2). The window sum takes the shared-memory slot after them.
+static int stack_depth(int NC) {
+  int k = 0;
+  while ((2 << k) < NC) ++k;
+  return k;
+}
 
 // Thread-private points in shared memory: word j of slot q of thread t at
 // smem[(q * 3 NW + j) * T + t] for a block of T threads (`mine` = smem + t).
@@ -83,18 +95,18 @@ __device__ __forceinline__ void store_slot(uint32_t* mine, int q, int T, const P
   }
 }
 
-// Block b, thread t: statement s = 2 b + t / W, window w = t % W. Each pass
-// of the inner loop is one addition cur = e + cur (e the older block): the
-// chunk's NC - 1 tree additions, then its accumulate. Before each, e (and
-// cur) are set by the walk's state: `pending` merges still owed to the
+// Block b, thread t: statement s = 2 b + t / W, window w = t % W; `acc` is
+// the window sum's slot, stack_depth(NC). Each pass of the inner loop is one addition cur = e + cur (e
+// the older block): the chunk's NC - 1 tree additions, then its accumulate.
+// Before each, e (and cur) are set by the walk's state: `pending` merges still owed to the
 // newest pair, `next` slots taken, `sp` partial sums waiting in slots
 // 0 .. sp - 1. Control flow depends on N, NC and the chunk only, so the
 // lanes of a warp never diverge.
 template <int NW, int AC>
 __global__ void __launch_bounds__(kStatements * kMaxW, NW == 8 ? 4 : 2)
     msm_chunked_window_kernel(const uint32_t* __restrict__ tbl, const uint32_t* __restrict__ k, int Lk, int N,
-                              int NC, int W, long long S, uint32_t* __restrict__ ox, uint32_t* __restrict__ oy,
-                              uint32_t* __restrict__ oz, CurveConsts<NW> C) {
+                              int NC, int acc, int W, long long S, uint32_t* __restrict__ ox,
+                              uint32_t* __restrict__ oy, uint32_t* __restrict__ oz, CurveConsts<NW> C) {
   extern __shared__ __align__(16) uint32_t smem[];
   const int T = blockDim.x;
   const long long s = (long long)blockIdx.x * kStatements + threadIdx.x / W;
@@ -115,7 +127,7 @@ __global__ void __launch_bounds__(kStatements * kMaxW, NW == 8 ? 4 : 2)
   };
   Pt<NW> cur, e;
   set_identity<NW>(cur, C);
-  store_slot<NW>(mine, kAcc, T, cur);
+  store_slot<NW>(mine, acc, T, cur);
   const int nb = (N + NC - 1) / NC;
   for (int j = 0; j < nb; ++j) {
     const int base = j * NC;
@@ -136,10 +148,10 @@ __global__ void __launch_bounds__(kStatements * kMaxW, NW == 8 ? 4 : 2)
           paired = true;
         }
       }
-      if (!paired) load_slot<NW>(mine, sp > 0 ? --sp : kAcc, T, e);  // the chunk's end: fold down, then accumulate
+      if (!paired) load_slot<NW>(mine, sp > 0 ? --sp : acc, T, e);  // the chunk's end: fold down, then accumulate
       point_add<NW, AC>(cur, e, cur, C);
     }
-    store_slot<NW>(mine, kAcc, T, cur);
+    store_slot<NW>(mine, acc, T, cur);
   }
   const long long off = ((long long)w * S + s) * 2 * NW;
   store_elem<NW>(ox + off, cur.x);
@@ -153,23 +165,24 @@ static int launch(int W, const void* px, const void* py, const void* pz, const v
                   cudaStream_t stream) {
   cudaError_t err = launch_tables<NW, AC>(px, py, pz, tbl, S * (long long)N, C, stream);
   if (err != cudaSuccess) return (int)err;
+  const int acc = stack_depth(NC);
   const int threads = kStatements * W;
-  const size_t shared = (size_t)threads * kSlots * 3 * NW * sizeof(uint32_t);
-  if (shared > 48 * 1024) {  // BLS12-377: 55,296 bytes a block of 128 threads
+  const size_t shared = (size_t)threads * (acc + 1) * 3 * NW * sizeof(uint32_t);
+  if (shared > 48 * 1024) {  // above the default: BLS12-377 at NC > 4, Stark at NC > 16
     err = cudaFuncSetAttribute(msm_chunked_window_kernel<NW, AC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)shared);
     if (err != cudaSuccess) return (int)err;
   }
   const long long blocks = (S + kStatements - 1) / kStatements;
   msm_chunked_window_kernel<NW, AC><<<(unsigned)blocks, threads, shared, stream>>>(
-      static_cast<const uint32_t*>(tbl), static_cast<const uint32_t*>(k), Lk, N, NC, W, S,
+      static_cast<const uint32_t*>(tbl), static_cast<const uint32_t*>(k), Lk, N, NC, acc, W, S,
       static_cast<uint32_t*>(ox), static_cast<uint32_t*>(oy), static_cast<uint32_t*>(oz), C);
   return (int)cudaGetLastError();
 }
 
 // L: limbs per coordinate (16 Stark, 24 BLS12-377 G1); W: 4-bit windows, at
 // most kMaxW, with Lk >= W / 4; points [S, N, L]; k: canonical scalar limbs
-// [S, N, Lk]; NC: points per step, 1..kMaxNC; tbl: scratch of S*N*16*3*(L/2)
+// [S, N, Lk]; NC: points per step, 1..kMaxNC (64); tbl: scratch of S*N*16*3*(L/2)
 // words; outputs: window sums [W, S, L]; acase and consts as in curve.cu.
 extern "C" int mp_msm_chunked(int L, int W, int acase, const void* px, const void* py, const void* pz,
                               const void* k, int Lk, void* tbl, void* ox, void* oy, void* oz,

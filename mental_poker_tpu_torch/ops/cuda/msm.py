@@ -33,10 +33,11 @@ The chunked kernel (`msm_chunked`, source `csrc/msm_chunked.cu`) replaces
 `msm_lanes` when `config.msm_nc` (`MPTPU_MSM_NC`) is above 1:
 
 - What it computes: the W window sums of each statement, NC points per
-  sequential step (NC = min(nc, N), NB = ceil(N / NC) steps): the NC points'
-  table entries by digit, a pairwise tree over them (left to right, an odd
-  element carried up), one accumulate per step. `msm_lanes` folds the sums
-  with the fold kernel (`ops/cuda/curve.py::fold_windows`).
+  sequential step (`chunk_points`: NC = min(nc, N, CHUNK_MAX),
+  NB = ceil(N / NC) steps): the NC points' table entries by digit, a
+  pairwise tree over them (left to right, an odd element carried up), one
+  accumulate per step. `msm_lanes` folds the sums with the fold kernel
+  (`ops/cuda/curve.py::fold_windows`).
 - What bounds it on the H100: integer multiply-adds, 14 table additions per
   point and NB * NC additions per window (the tree's NC - 1 and one
   accumulate per chunk, pad slots included). A TPU level's additions are
@@ -49,8 +50,10 @@ The chunked kernel (`msm_chunked`, source `csrc/msm_chunked.cu`) replaces
   shared memory (slot values pushed left to right, the two newest partial
   sums merged while they cover blocks of one size, the rest folded from the
   newest down at the chunk's end), which is the TPU's pairing with its odd
-  carry for every NC. Every lane adds at every step and no barrier is
-  waited on. One window's dependent chain is 14 table additions, then
+  carry for every NC. The launch sizes the stack for NC (k + 1 points a
+  thread in shared memory for up to 2^(k+1) points a step: three at
+  NC = 8, six at 64), so that small NC keep their occupancy. Every lane adds at every step and no barrier
+  is waited on. One window's dependent chain is 14 table additions, then
   NB * NC additions. The window sums go out, so the fold chain runs once
   per statement in the fold kernel.
 
@@ -79,7 +82,18 @@ _CHUNKED_ARGS = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 4 + [ctypes.c_int] + [
                  + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
 
 WINDOW = 4  # window bits; csrc/msm_table.cuh's kC
-CHUNK_MAX = 8  # the most points per step the chunked kernel takes; csrc/msm_chunked.cu's kMaxNC
+# The most points per step the chunked kernel takes (csrc/msm_chunked.cu's
+# kMaxNC): the JAX package's largest NC is 52, its most points per call.
+# Above it both versions run CHUNK_MAX points a step, so no nc is refused.
+CHUNK_MAX = 64
+
+
+def chunk_points(nc: int, N: int) -> int:
+    """NC, the points per step the chunked MSM runs for a setting nc >= 1 on
+    statements of N points: min(nc, N, CHUNK_MAX)."""
+    if nc < 1:
+        raise ValueError(f"msm_chunked: points per step must be at least 1, got nc={nc}")
+    return min(nc, N, CHUNK_MAX)
 
 
 def num_windows(cv) -> int:
@@ -167,9 +181,9 @@ def msm_chunked_plain(cv, P, k: torch.Tensor, nc: int):
     px = P[0]
     S, N, L = px.shape
     W = num_windows(cv)
+    NC = chunk_points(nc, N)
     if N == 0:
         return tuple(cv.identity_like(px.new_zeros((W, S, L))))
-    NC = min(nc, N)
     NB = -(-N // NC)
     add = lambda A, B: point_add_plain(cv, A, B)
     tbl = _multiples(cv, P)
@@ -208,8 +222,7 @@ def msm_chunked_cuda(cv, P, k: torch.Tensor, nc: int):
     _check(k, Lk, px.device, "msm_chunked")
     S, N = px.shape[0], px.shape[1]
     W = num_windows(cv)
-    if not 1 <= nc <= CHUNK_MAX:
-        raise ValueError(f"msm_chunked_cuda: the kernel takes 1 to {CHUNK_MAX} points per step, got nc={nc}")
+    NC = chunk_points(nc, N)
     if S == 0 or N == 0:
         return tuple(cv.identity_like(px.new_zeros((W, S, L))))
     out = [px.new_empty((W, S, L)) for _ in range(3)]
@@ -218,7 +231,7 @@ def msm_chunked_cuda(cv, P, k: torch.Tensor, nc: int):
     stream = torch.cuda.current_stream(px.device).cuda_stream
     build.check(
         fn(L, W, a_case(cv), *(t.data_ptr() for t in P), k.data_ptr(), Lk, tbl.data_ptr(),
-           *(o.data_ptr() for o in out), S, N, min(nc, N), curve_words(cv).ctypes.data, stream),
+           *(o.data_ptr() for o in out), S, N, NC, curve_words(cv).ctypes.data, stream),
         "msm_chunked",
     )
     LAUNCHES["msm_chunked"] += 1
@@ -226,9 +239,9 @@ def msm_chunked_cuda(cv, P, k: torch.Tensor, nc: int):
 
 
 def msm_chunked(cv, P, k: torch.Tensor, nc: int):
-    """The window sums (x, y, z) [W, S, L] of sum_i k[s, i] * P[s, i], nc
-    points per step. CPU tensors take the plain version; CUDA tensors take
-    the kernel."""
+    """The window sums (x, y, z) [W, S, L] of sum_i k[s, i] * P[s, i],
+    `chunk_points(nc, N)` points per step. CPU tensors take the plain
+    version; CUDA tensors take the kernel."""
     if all(t.device.type == "cpu" for t in (*P, k)):
         return msm_chunked_plain(cv, P, k, nc)
     return msm_chunked_cuda(cv, tuple(t.contiguous() for t in P), k.contiguous(), nc)

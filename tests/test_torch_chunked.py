@@ -17,9 +17,13 @@ bigints.
   proof leaf for leaf.
 - The window kernel's walk (`csrc/msm_chunked.cu`: one thread per window,
   each chunk's tree evaluated in post-order on a stack), written out in
-  Python over expression trees, builds the same expression as the JAX
-  kernel's level-by-level pairing for every NC from 1 to 8, with and
-  without pad slots, in NB * NC additions.
+  Python over expression trees with the stack depth the kernel's launch
+  gives that NC (`stack_depth`: two partial sums up to NC = 8, five up to
+  64; one fewer is too few at NC 4, 8, 16 and 64), builds the same expression as the JAX kernel's level-by-level pairing for
+  every NC from 1 to 8 and at NC 9, 16, 31, 33, 52 and 64, with and without
+  pad slots, in NB * NC additions.
+- `msm_lanes` at nc = 16 and nc = 100 (above `CHUNK_MAX`, so NC = N):
+  Stark, S = 2, N = 20, equal to host bigints.
 
 Tolerance: exact equality of field integers.
 """
@@ -217,6 +221,17 @@ def test_msm_wide_split_at_nc8():
     assert cv.to_host_points(PointP(*(t[None] for t in got))) == _host_msm(cv.host, pts, ks)
 
 
+@pytest.mark.parametrize("nc", [16, 100])
+def test_stark_chunked_wide_nc(nc):
+    """nc above 8 (the card once refused it) and above `CHUNK_MAX`: S = 2,
+    N = 20 (NC = 16: NB = 2 with 12 pad slots; NC = 20 at nc = 100)."""
+    cv = stark_curve()
+    pts, ks = _stark_statement(cv, 2, 20, 20)
+    P, k = _tensors(cv, pts, ks)
+    assert cuda_msm.chunk_points(nc, 20) == min(nc, 20)
+    assert cv.to_host_points(PointP(*cuda_msm.msm_lanes(cv, P, k, nc=nc))) == _host_msm(cv.host, pts, ks)
+
+
 def test_chunked_wrapper_checks():
     cv = stark_curve()
     pts, ks = _stark_statement(cv, 2, 3, 1)
@@ -226,6 +241,9 @@ def test_chunked_wrapper_checks():
     empty = cuda_msm.msm_chunked(cv, tuple(t[:, :0] for t in P), k[:, :0], 4)
     assert empty[0].shape == (63, 2, 16)
     assert bool(cv.is_identity(PointP(*empty)).all())
+    with pytest.raises(ValueError):
+        cuda_msm.msm_chunked(cv, P, k, 0)  # at least one point a step
+    assert cuda_msm.chunk_points(cuda_msm.CHUNK_MAX + 1, 1000) == cuda_msm.CHUNK_MAX == 64
 
 
 def test_staged_proof_same_at_nc4(monkeypatch):
@@ -258,17 +276,27 @@ def test_staged_proof_same_at_nc4(monkeypatch):
         assert torch.equal(a, b)
 
 
-def _kernel_walk(chunks):
+def _stack_depth(NC):
+    """`csrc/msm_chunked.cu::stack_depth`: the shared-memory slots for
+    partial sums that the launch gives NC, the least k with 2^(k+1) >= NC."""
+    k = 0
+    while (2 << k) < NC:
+        k += 1
+    return k
+
+
+def _kernel_walk(chunks, depth):
     """`msm_chunked_window_kernel`'s loop, statement for statement, over
     expressions: a leaf is a point index (or "O", the identity of a pad slot
     and of the window sum's start) and an addition is the ordered pair
-    (left, right). `stack` has the kernel's two shared-memory slots."""
+    (left, right). `stack` has `depth` shared-memory slots for partial sums
+    (an IndexError if the walk needed more)."""
     NC = len(chunks[0])
     acc = cur = "O"
     adds = 0
     for chunk in chunks:
         nxt = sp = pending = 0
-        stack = [None, None]
+        stack = [None] * depth
         for _ in range(NC):
             paired = False
             if pending > 0:
@@ -317,14 +345,18 @@ def _level_pairing(chunks):
 
 
 @pytest.mark.parametrize("pad", [False, True], ids=["N=3NC", "N=2NC-1"])
-@pytest.mark.parametrize("nc", range(1, cuda_msm.CHUNK_MAX + 1))
+@pytest.mark.parametrize("nc", [*range(1, 9), 9, 16, 31, 33, 52, cuda_msm.CHUNK_MAX])
 def test_kernel_walk_equals_level_pairing(nc, pad):
     N = 2 * nc - 1 if pad else 3 * nc
     NB = -(-N // nc)
     slots = [i if i < N else "O" for i in range(NB * nc)]
     chunks = [slots[j * nc:(j + 1) * nc] for j in range(NB)]
-    walked, adds = _kernel_walk(chunks)
+    depth = _stack_depth(nc)
+    walked, adds = _kernel_walk(chunks, depth)
     assert walked == _level_pairing(chunks)
+    if depth and nc & (nc - 1) == 0:  # a full chunk of 2^(k+1) slots leaves k waiting: none fewer holds it
+        with pytest.raises(IndexError):
+            _kernel_walk(chunks, depth - 1)
     assert adds == NB * nc
     first = walked
     for _ in range(NB - 1):

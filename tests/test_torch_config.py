@@ -15,21 +15,25 @@ from mental_poker_tpu_torch.config import RuntimeConfig, get_config, override, s
 def test_env_backing(monkeypatch):
     monkeypatch.setenv("MPTPU_FIXED_WINDOW", "8")
     monkeypatch.setenv("MPTPU_MSM_NC", "4")
+    monkeypatch.setenv("MPTPU_BENCH_MODE", "multigame")
     set_config(None)  # force a re-read
     try:
         cfg = get_config()
         assert cfg.fixed_window_bits == 8
         assert cfg.msm_nc == 4
+        assert cfg.bench_mode == jconfig.RuntimeConfig.from_env().bench_mode == "multigame"  # the JAX name
     finally:
         set_config(None)
 
 
 def test_defaults_match_jax(monkeypatch):
-    monkeypatch.delenv("MPTPU_FIXED_WINDOW", raising=False)
-    monkeypatch.delenv("MPTPU_MSM_NC", raising=False)
+    for k in ("MPTPU_FIXED_WINDOW", "MPTPU_MSM_NC", "MPTPU_BENCH_MODE"):
+        monkeypatch.delenv(k, raising=False)
     cfg = RuntimeConfig.from_env()
-    assert cfg.fixed_window_bits == jconfig.RuntimeConfig.from_env().fixed_window_bits == 4
+    jcfg = jconfig.RuntimeConfig.from_env()
+    assert cfg.fixed_window_bits == jcfg.fixed_window_bits == 4
     assert cfg.msm_nc == 1  # the JAX package's DEFAULT_NC without MPTPU_MSM_NC
+    assert cfg.bench_mode == jcfg.bench_mode == "shuffle52"
 
 
 def test_override_context():

@@ -127,12 +127,16 @@ def test_fold_windows_kernel_equals_plain(dev, curve):
 
 
 @pytest.mark.parametrize("curve,S,N,nc", [(stark_curve, 64, 52, 8), (stark_curve, 3, 5, 4), (bls12_377_g1, 16, 10, 8),
-                                          (stark_curve, 1, 5, 3), (bls12_377_g1, 33, 5, 3)])
+                                          (stark_curve, 1, 5, 3), (bls12_377_g1, 33, 5, 3),
+                                          (stark_curve, 3, 40, 16), (bls12_377_g1, 3, 40, 16),
+                                          (stark_curve, 33, 60, 52), (bls12_377_g1, 33, 60, 52),
+                                          (stark_curve, 2, 130, 64), (bls12_377_g1, 1, 100, 64)])
 def test_msm_chunked_kernel_equals_plain(dev, curve, S, N, nc):
     """The window sums, limb for limb, with N % NC != 0 (pad slots), the
     scalars 0, 1 and q - 1 and an identity point among the inputs (the
     last two in statement 1 where there is one). S = 1 and S = 33 leave the
-    last block of two statements half empty."""
+    last block of two statements half empty. NC 16, 52 and 64 take a
+    deeper stack of partial sums (three, five and five)."""
     cv = curve()
     P = PointP(*(t.reshape(S, N, -1).clone() for t in _points(cv, S * N, 6, dev)))
     q = cv.host.order
@@ -147,4 +151,7 @@ def test_msm_chunked_kernel_equals_plain(dev, curve, S, N, nc):
     assert got[0].shape == (cuda_msm.num_windows(cv), S, cv.fq.L)
     assert all(torch.equal(g, w) for g, w in zip(got, want))
     with pytest.raises(ValueError):
-        cuda_msm.msm_chunked(cv, P, k, cuda_msm.CHUNK_MAX + 1)  # above the kernel's built-in maximum
+        cuda_msm.msm_chunked(cv, P, k, 0)  # at least one point a step
+    if N > cuda_msm.CHUNK_MAX:  # above the kernel's maximum both versions run CHUNK_MAX points a step
+        got = cuda_msm.msm_chunked(cv, P, k, N)
+        assert all(torch.equal(g, w) for g, w in zip(got, cuda_msm.msm_chunked_plain(cv, P, k, cuda_msm.CHUNK_MAX)))

@@ -1,34 +1,37 @@
 """The port's batched shuffle prove/verify against the JAX package, on the CPU.
 
 The statement is `tests/test_determinism.py`'s (`GameRng(1234)`, (m, n) =
-(2, 4)), so the JAX programs are the ones that file compiles. Both packages
-get the same statement, keys (`params.keys_from_jax`) and randomness
-(`sample_shuffle_rand` from one seed); tolerance: every proof leaf equal,
-exactly.
+(2, 4)), made by the port's `DLCards` with the JAX package's draws; the
+JAX package's statement has the pinned SHA-256 below. Both packages get the
+same randomness (`sample_shuffle_rand` from one seed, compared live); the
+JAX package's proofs of the statement's deck and of two decks made by the
+port are pinned as the SHA-256 of their 56 proof leaves. Tolerance: every
+leaf equal, exactly.
 
-All checks against JAX live in one test, so that the JAX package traces its
-B=1 prove programs (in the statement's `shuffle_and_remask`) and its B=1
-verify programs once, on one worker. The port's two verifier checks share
-one B=2 verify.
+Tier 1 holds the port against the pins: the B=1 proof and each deck's slice
+of a B=3 proof. One port verify at B=2 accepts the JAX-equal proof and
+rejects a tampered deck with "Hadamard Product (5.1)". The `slow` test
+traces the JAX prover and verifier (about three minutes), recomputes the
+pins, and has the JAX verifier accept the port's proof.
 """
 
-import jax
+import hashlib
+
 import numpy as np
 import pytest
 import torch
 
 from mental_poker_tpu.arguments import device_api as jdevice_api
-from mental_poker_tpu.crypto import elgamal as jelgamal
-from mental_poker_tpu.protocol.dl_cards import DLCards
+from mental_poker_tpu.protocol.dl_cards import DLCards as JDLCards
 from mental_poker_tpu.utils.rand import GameRng as JGameRng
-from mental_poker_tpu.utils.rand import ints_to_limbs
 from mental_poker_tpu_torch import params
 from mental_poker_tpu_torch.arguments import device_api
 from mental_poker_tpu_torch.crypto import elgamal
 from mental_poker_tpu_torch.crypto.elgamal import Ciphertexts
 from mental_poker_tpu_torch.crypto.errors import HADAMARD, ProofVerificationError
-from mental_poker_tpu_torch.ops.curve import PointP, map_point, stark_curve
+from mental_poker_tpu_torch.ops.curve import map_point, stark_curve
 from mental_poker_tpu_torch.ops.msm import FixedBaseTable
+from mental_poker_tpu_torch.protocol.dl_cards import DLCards
 from mental_poker_tpu_torch.utils.rand import GameRng
 
 from _torch_bridge import leaves, one_torch_thread, rebuild, to_jax_tree, to_np, to_torch  # noqa: F401
@@ -36,25 +39,45 @@ from _torch_bridge import leaves, one_torch_thread, rebuild, to_jax_tree, to_np,
 M, N_COLS = 2, 4
 N = M * N_COLS
 
+# SHA-256 of the JAX statement's deck and shuffled deck as affine points
+# (c0 then c1 of each; x, y as 32 little-endian bytes, then the identity
+# flag). The two packages' projective coordinates differ; their proofs do
+# not.
+STATEMENT_SHA256 = "392ff52e225e8ce46dc91265b017166f62c2b7c61ab7498d855ff70f8a7ac811"
+# SHA-256 of the 56 leaves of the JAX B=1 proof of each of the three decks
+# (the statement's, then the port's decks of seeds 21 and 22).
+PROOF_SHA256 = [
+    "759fc6b8feb513660bd24375a66b7cc5b591f24d62e55c46e314a52dc77cc853",
+    "4a0bb992624c6051167d09be59a460c13a1fbea5bf86125b452fca6e39aad9d4",
+    "3fd5b08acecc167772278c5f350831970136bd588b7f980b23cd2b74d3931529",
+]
 
-def _jax_statement():
-    """`tests/test_determinism.py::_setup`: parameters, aggregate key, a
-    deck and its JAX shuffle."""
-    proto = DLCards()
-    rng = JGameRng(1234)
+
+def sha256(arrays) -> str:
+    h = hashlib.sha256()
+    for t in arrays:
+        a = to_np(t) if isinstance(t, torch.Tensor) else np.asarray(t)
+        h.update(np.ascontiguousarray(a.astype(bool) if a.dtype == bool else a.astype("<u4")).tobytes())
+    return h.hexdigest()
+
+
+def _port_statement():
+    """`tests/test_determinism.py::_setup` in the port: parameters, the
+    aggregate key, a deck and its permute+remask (4-bit tables, the JAX
+    default), batched [1, N]; and the shuffle keys."""
+    proto = DLCards(device="cpu", c=4)
+    rng = GameRng(1234)
     pp = proto.setup(rng, M, N_COLS)
     pk, sk = proto.player_keygen(rng, pp)
     proof = proto.prove_key_ownership(rng, pp, pk, sk, b"d1")
     agg = proto.compute_aggregate_key(pp, [(pk, proof, b"d1")])
-    deck = jelgamal.rand_ciphertexts(proto.cv, rng, N)
-    pi = rng.permutation(N)
-    rho = [rng.scalar(proto.cv.host.order) for _ in range(N)]
-    shuffled, _ = proto.shuffle_and_remask(rng, pp, agg, deck, rho, pi)
-    return proto, pp, agg, deck, pi, rho, shuffled
-
-
-def _cipher_to_torch(c):
-    return Ciphertexts(*(PointP(*(to_torch(np.asarray(x)) for x in p)) for p in c))
+    cv = proto.cv
+    deck = _batch1(elgamal.rand_ciphertexts(cv, rng, N, "cpu"))
+    pi = torch.as_tensor(rng.permutation(N).astype(np.int64))[None]
+    rho = proto._limbs([rng.scalar(cv.host.order) for _ in range(N)], (1, N))
+    permuted = Ciphertexts(*(map_point(lambda t: t[:, pi[0]], c) for c in deck))
+    shuffled = elgamal.cipher_add(cv, permuted, elgamal.encrypt_zero(pp.enc, agg.table, rho))
+    return cv, pp, agg, device_api.make_keys(pp, agg), (deck, shuffled, pi, rho)
 
 
 def _port_deck(tcv, tkeys, agg_host, generator, seed):
@@ -69,6 +92,25 @@ def _port_deck(tcv, tkeys, agg_host, generator, seed):
     permuted = Ciphertexts(*(map_point(lambda t: t[pi], c) for c in deck))
     shuffled = elgamal.cipher_add(tcv, permuted, elgamal.encrypt_zero(enc, agg, rho))
     return deck, shuffled, pi, rho
+
+
+def _decks():
+    """The port's statement and the three decks, each batched [1, N]."""
+    tcv, pp, agg, tkeys, first = _port_statement()
+    decks = [first]
+    for seed in (21, 22):
+        d, s, p, r = _port_deck(tcv, tkeys, agg.host, pp.enc.generator, seed)
+        decks.append((_batch1(d), _batch1(s), p[None], r[None]))
+    return tcv, tkeys, decks
+
+
+def statement_sha256(cv, deck, shuffled) -> str:
+    """`STATEMENT_SHA256` of [1, N] ciphertexts (either package's curve)."""
+    h = hashlib.sha256()
+    for c in (*deck, *shuffled):
+        for x, y, inf in cv.to_host_points(type(c)(*(t[0] for t in c))):
+            h.update(x.to_bytes(32, "little") + y.to_bytes(32, "little") + bytes([inf]))
+    return h.hexdigest()
 
 
 def _cat(trees):
@@ -86,73 +128,84 @@ def _at(tree, b):
     return rebuild(tree, [t[b : b + 1] for t in leaves(tree)])
 
 
-def test_proofs_equal_jax_and_cross_verify():
-    proto, pp, agg, deck, pi, rho, shuffled = _jax_statement()
-    jcv = proto.cv
-    q = jcv.host.order
-    L = jcv.fr.L
-    jkeys = jdevice_api.make_keys(pp, agg)
-    tcv = stark_curve()
-    tkeys = params.keys_from_jax(pp, agg, c=4, device="cpu")  # the JAX default window
-    bat = lambda cts: jax.tree.map(lambda a: a[None], cts)
-    jdeck, jshuf = bat(deck), bat(shuffled)
-    rho_c = ints_to_limbs(rho, L)[None]
-    pi_b = np.asarray(pi, np.int32)[None]
+def _rand3(q, L):
+    return device_api.sample_shuffle_rand(GameRng(9), M, N_COLS, L, q, batch=3, device="cpu")
 
-    # three decks: the JAX statement's and two made by the port
-    decks = [(_cipher_to_torch(jdeck), _cipher_to_torch(jshuf), torch.as_tensor(pi_b.astype(np.int64)), to_torch(rho_c))]
-    for seed in (21, 22):
-        d, s, p, r = _port_deck(tcv, tkeys, agg.host, pp.enc.generator, seed)
-        decks.append((_batch1(d), _batch1(s), p[None], r[None]))
+
+def test_proofs_equal_jax_and_cross_verify():
+    tcv, tkeys, decks = _decks()
+    q, L = tcv.host.order, tcv.fr.L
+    assert statement_sha256(tcv, *decks[0][:2]) == STATEMENT_SHA256
     deck3, shuf3, pi3, rho3 = (_cat(list(x)) for x in zip(*decks))
 
     # the same randomness from one seed in both packages; deck b proves with slice b
     jrand = jdevice_api.sample_shuffle_rand(JGameRng(9), M, N_COLS, L, q, batch=3)
-    rand3 = device_api.sample_shuffle_rand(GameRng(9), M, N_COLS, L, q, batch=3, device="cpu")
+    rand3 = _rand3(q, L)
     for j, t in zip(jrand, rand3):
         np.testing.assert_array_equal(to_np(t), j)
 
-    # JAX proofs at B=1 (the statement traced these programs), one per deck
-    jproofs = []
-    for b, (d, s, p, r) in enumerate(decks):
-        jr = type(jrand)(*(a[b : b + 1] for a in jrand))
-        jp = jdevice_api.prove_shuffle(
-            jcv, M, N_COLS, jkeys, to_jax_tree(d), to_jax_tree(s), to_np(p).astype(np.int32), to_np(r), jr
-        )
-        jl, treedef = jax.tree.flatten(jp)
-        jproofs.append(jl)
-    jleaves = jproofs[0]
-
-    # ---- B = 1: the same proof as JAX, leaf for leaf
+    # ---- B = 1: the same proof as JAX's
     tproof = device_api.prove_shuffle(tcv, M, N_COLS, tkeys, *decks[0], _at(rand3, 0))
-    tleaves = leaves(tproof)
-    assert len(jleaves) == len(tleaves) == 56
-    for j, t in zip(jleaves, tleaves):
-        np.testing.assert_array_equal(to_np(t), np.asarray(j))
+    assert len(leaves(tproof)) == 56
+    assert sha256(leaves(tproof)) == PROOF_SHA256[0]
 
     # ---- B = 3: deck b's slice equals deck b's JAX proof
     leaves3 = leaves(device_api.prove_shuffle(tcv, M, N_COLS, tkeys, deck3, shuf3, pi3, rho3, rand3))
-    for b, jl in enumerate(jproofs):
-        for t, j in zip(leaves3, jl):
-            np.testing.assert_array_equal(to_np(t[b : b + 1]), np.asarray(j))
+    assert [sha256([t[b : b + 1] for t in leaves3]) for b in range(3)] == PROOF_SHA256
 
-    # ---- one port verify at B=2: deck 0 the JAX proof (must pass), deck 1
-    # the port's proof against a tampered deck (must fail Hadamard first)
+    # ---- one port verify at B=2: deck 0 the JAX-equal proof (must pass),
+    # deck 1 the same proof against a tampered deck (must fail Hadamard first)
     tdeck, tshuf = decks[0][0], decks[0][1]
-    from_jax = rebuild(tproof, [to_torch(np.asarray(x)) for x in jleaves])
     swap = [1, 0] + list(range(2, N))
     bad = Ciphertexts(map_point(lambda t: t[:, swap], tshuf.c0), tshuf.c1)
     checks = device_api.verify_shuffle(
-        tcv, M, N_COLS, tkeys, _cat([tdeck, tdeck]), _cat([tshuf, bad]), _cat([from_jax, tproof])
+        tcv, M, N_COLS, tkeys, _cat([tdeck, tdeck]), _cat([tshuf, bad]), _cat([tproof, tproof])
     )
     assert all(bool(c[0]) for c in checks)
     with pytest.raises(ProofVerificationError) as err:
         device_api.raise_by_flags(_at(checks, 1))
     assert err.value.name == HADAMARD
 
-    # ---- the JAX verifier accepts the port's proof
-    from_port = jax.tree.unflatten(treedef, [to_np(x) for x in tleaves])
-    jchecks = jdevice_api.verify_shuffle(jcv, M, N_COLS, jkeys, jdeck, jshuf, from_port)
+
+@pytest.mark.slow
+def test_jax_recomputes_pins_and_accepts_port_proof():
+    """The JAX statement (its `shuffle_and_remask` traces the JAX B=1 prove
+    programs), the JAX B=1 proof of each deck, and the JAX verifier on the
+    port's proof."""
+    import jax
+
+    from mental_poker_tpu.crypto import elgamal as jelgamal
+    from mental_poker_tpu.utils.rand import ints_to_limbs
+
+    proto = JDLCards()
+    rng = JGameRng(1234)
+    pp = proto.setup(rng, M, N_COLS)
+    pk, sk = proto.player_keygen(rng, pp)
+    proof = proto.prove_key_ownership(rng, pp, pk, sk, b"d1")
+    agg = proto.compute_aggregate_key(pp, [(pk, proof, b"d1")])
+    deck = jelgamal.rand_ciphertexts(proto.cv, rng, N)
+    pi = rng.permutation(N)
+    rho = [rng.scalar(proto.cv.host.order) for _ in range(N)]
+    shuffled, _ = proto.shuffle_and_remask(rng, pp, agg, deck, rho, pi)
+    bat = lambda cts: jax.tree.map(lambda a: a[None], cts)
+    jdeck, jshuf = bat(deck), bat(shuffled)
+    assert statement_sha256(proto.cv, jdeck, jshuf) == STATEMENT_SHA256
+
+    tcv, tkeys, decks = _decks()
+    jcv, q, L = proto.cv, proto.cv.host.order, proto.cv.fr.L
+    jkeys = jdevice_api.make_keys(pp, agg)
+    jrand = jdevice_api.sample_shuffle_rand(JGameRng(9), M, N_COLS, L, q, batch=3)
+    jdecks = [(jdeck, jshuf, np.asarray(pi, np.int32)[None], ints_to_limbs(rho, L)[None])]
+    jdecks += [tuple(to_jax_tree(x) for x in d[:2]) + (to_np(d[2]).astype(np.int32), to_np(d[3])) for d in decks[1:]]
+    hashes = []
+    for b, (d, s, p, r) in enumerate(jdecks):
+        jr = type(jrand)(*(a[b : b + 1] for a in jrand))
+        jp = jdevice_api.prove_shuffle(jcv, M, N_COLS, jkeys, d, s, p, r, jr)
+        hashes.append(sha256(jax.tree.leaves(jp)))
+    assert hashes == PROOF_SHA256
+
+    tproof = device_api.prove_shuffle(tcv, M, N_COLS, tkeys, *decks[0], _at(_rand3(q, L), 0))
+    jchecks = jdevice_api.verify_shuffle(jcv, M, N_COLS, jkeys, jdeck, jshuf, to_jax_tree(tproof))
     assert all(bool(np.asarray(c).all()) for c in jchecks)
 
 
@@ -161,7 +214,7 @@ def test_full_deck_prove_verify_against_jax_verifier():
     """(m, n) = (2, 26), B = 1: the port proves and verifies on the CPU and
     the JAX verifier accepts the port's proof."""
     m, n = 2, 26
-    proto = DLCards()
+    proto = JDLCards()
     rng = JGameRng(4321)
     pp = proto.setup(rng, m, n)
     pk, sk = proto.player_keygen(rng, pp)
