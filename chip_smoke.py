@@ -9,7 +9,8 @@ Run from the repository root on a machine with one CUDA card and nvcc:
 Phases (every failure exits non-zero; nothing is caught and ignored):
 
 1. Build: every CUDA kernel from `mental_poker_tpu_torch/csrc/`, one nvcc
-   per source, all at once.
+   per source, all at once; `point_add_kernel`'s instructions counted in
+   its SASS (`cuobjdump -sass`), for phase 4's bound.
 2. Each kernel against its plain PyTorch version on the card, at the main
    path's shapes, limb for limb, plus a few results against host bigints;
    the lane-MSM kernel also at the edges of its thread mapping on both
@@ -23,7 +24,10 @@ Phases (every failure exits non-zero; nothing is caught and ignored):
    on the card must equal the same proof made on the CPU by the plain
    versions, leaf for leaf.
 4. Times: prove+verify at B=128 and B=1, and each kernel at its main-path
-   shape beside its plain version and its bound; the lane-MSM kernel at
+   shape beside its plain version and its bound (`point_add`'s from the
+   IMAD instructions of its SASS; `mont_mul` and `point_add` on inputs
+   cycled through copies larger than twice the L2, so that they come from
+   HBM as their bytes bounds assume); the lane-MSM kernel at
    each of its five main-path shapes and at one statement of one point.
    With `--profile DIR`, one B=128 prove+verify at `msm_nc = 1` is traced
    and each kernel's device time, summed over its launches, goes into its
@@ -73,6 +77,18 @@ Phases (every failure exits non-zero; nothing is caught and ignored):
    and one 1,024-card deck at (16, 64) proved and verified (a tampered deck
    rejected), with the per-statement MSM kernel held against its plain
    version at every shape it ran at there that phase 2c did not compare.
+8. The parallel layer (`mental_poker_tpu_torch/parallel/`, seventh slice;
+   `parallel_phase`): at world size 1 on NCCL, the path alone with its
+   launch counts read around it (the sharded remask, deck MSM, window MSM,
+   prefix product and commit on phase 3's B=128 decks, the deck MSM again
+   at `msm_nc = 8`, the dry run's tier 2: the batch through `shard_batch` /
+   `gather_batch`), every kernel launched; tier 2's proof equal to phase
+   3's leaf for leaf; the remask, deck MSM, window MSM and prefix product
+   held against their unsharded paths and timed beside them; then at D =
+   1, 2 and 4 ranks every rank's local step in turn (`run_ranks`), the
+   gathers emulated, each combined result equal to world size 1; and every
+   kernel launch at a shape no earlier phase compared held against its
+   plain version.
 
 Every phase runs with `msm_nc = 1` (the per-statement MSM kernel) unless it
 says otherwise, whatever `MPTPU_MSM_NC` holds.
@@ -97,8 +113,9 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # at 700 W). Integer: the CUDA C++ Programming Guide's throughput table gives
 # compute capability 9.0 64 results per clock per SM for 32-bit integer
 # multiply and multiply-add (IMAD), half its float32 FMA rate; `imad_rate`
-# multiplies that by the card's SM count and its maximum SM clock. Each
-# 32x32->64-bit word product takes two IMADs (low and high half).
+# multiplies that by the card's SM count and its maximum SM clock. The model
+# bounds take two IMADs per 32x32->64-bit word product (low and high half);
+# `point_add`'s bound counts the IMADs of its SASS instead (phase 1).
 HBM_BYTES_PER_S = 3.35e12
 IMAD_PER_SM_CLOCK = 64
 IMAD_PER_S = None  # set by main() from the card
@@ -204,6 +221,23 @@ def cuda_ms(fn, reps: int, warm: int = 1) -> float:
     return times[len(times) // 2]
 
 
+def cold(fn, args: tuple, nbytes: int):
+    """A call of fn(*args) with no arguments that cycles through copies of
+    `args`, enough of them that the bytes the calls move between two uses
+    of one copy (`nbytes` a call) exceed twice the card's L2: each call
+    reads its inputs from HBM, as a bytes bound at the HBM rate assumes.
+    Returns (the call, the number of copies)."""
+    import itertools
+
+    import torch
+
+    l2 = getattr(torch.cuda.get_device_properties(0), "L2_cache_size", 50 * 2**20)
+    n = max(2, -(-2 * l2 // nbytes) + 1)
+    clone = lambda x: type(x)(*map(torch.clone, x)) if isinstance(x, tuple) else x.clone()
+    copies = itertools.cycle([args] + [tuple(clone(x) for x in args) for _ in range(n - 1)])
+    return (lambda: fn(*next(copies))), n
+
+
 # Device-side kernel names (csrc/) of each wrapper's launches: msm_lanes at
 # nc = 1 launches the table kernel and the window/fold kernel.
 KERNEL_FUNCTIONS = {
@@ -296,7 +330,8 @@ def main() -> int:
     from mental_poker_tpu_torch.ops.cuda import curve as cuda_curve
     from mental_poker_tpu_torch.ops.cuda import field as cuda_field
     from mental_poker_tpu_torch.ops.cuda import msm as cuda_msm
-    from mental_poker_tpu_torch.ops.curve import PointP, map_point, stark_curve
+    from mental_poker_tpu_torch.ops.curve import PointP, bls12_377_g1, map_point, stark_curve
+    from mental_poker_tpu_torch.parallel.sharding import leaves
     from mental_poker_tpu_torch.utils.rand import GameRng, ints_to_limbs
 
     global IMAD_PER_S, SM_CLOCK_HZ
@@ -316,6 +351,15 @@ def main() -> int:
     for src in build.SOURCES:
         for line in ptxas_summary(build.build_log(src)):
             log(f"  ptxas {src}: {line}")
+    # point_add's integer multiply-adds per addition, from its SASS: one
+    # addition a thread, so the static counts of the Stark instantiation
+    # (NW = 8 words, a = 1) are its dynamic counts when it has no loop
+    sass = sass_counts("point_add_kernel", "curve.cu")
+    for fn_name, counts in sass.items():
+        log(f"  sass curve.cu {fn_name}: {counts}; IMAD instructions {imad_count(counts)}")
+    stark_add = [c for fn_name, c in sass.items() if "ILi8ELi1E" in fn_name]
+    require(len(stark_add) == 1, f"point_add_kernel<8, 1> not found once in the SASS: {list(sass)}")
+    add_imads = imad_count(stark_add[0])
 
     cv = stark_curve()
     fq, fr = cv.fq, cv.fr
@@ -522,15 +566,15 @@ def main() -> int:
             raise AssertionError(f"kernel {k} was not launched on the main path at msm_nc = {NC}")
     if launches8["msm_lanes"] or launches8["fold_windows"] != launches8["msm_chunked"]:
         raise AssertionError("at msm_nc = 8 every variable-base MSM must be one chunked launch and one fold")
-    diff = [i for i, (a_, b_) in enumerate(zip(_leaves(proof), _leaves(proof8))) if not torch.equal(a_, b_)]
-    if diff or len(_leaves(proof)) != len(_leaves(proof8)):
+    diff = [i for i, (a_, b_) in enumerate(zip(leaves(proof), leaves(proof8))) if not torch.equal(a_, b_)]
+    if diff or len(leaves(proof)) != len(leaves(proof8)):
         raise AssertionError(f"the msm_nc = {NC} proof differs from the nc = 1 proof at leaves {diff}")
     all_compared(seen8, f"the main path at msm_nc = {NC}")
     kernels["msm_chunked"]["launches"] = launches8["msm_chunked"]
     kernels["fold_windows"] = dict(launches_nc8=launches8["fold_windows"])
     pv8_ms = sorted(times8)[1]
     log(f"prove+verify B={B}, msm_nc={NC}: {pv8_ms:.1f} ms per batch (runs {[round(t, 1) for t in times8]}), "
-        f"{B / pv8_ms * 1e3:.2f} pairs/s; the proof equals the nc = 1 proof ({len(_leaves(proof8))} leaves)")
+        f"{B / pv8_ms * 1e3:.2f} pairs/s; the proof equals the nc = 1 proof ({len(leaves(proof8))} leaves)")
 
     if args.profile:
         os.makedirs(args.profile, exist_ok=True)
@@ -602,7 +646,7 @@ def main() -> int:
     pis = np.stack([r.permutation(Ns) for _ in range(2)]).astype(np.int64)
     rhos = r.scalar_limbs(q, (2, Ns), fr.L).astype(np.int32)
     rands = device_api.sample_shuffle_rand(r, ms_, ns_, fr.L, q, batch=2, device="cpu")
-    leaves = []
+    proof_leaves = []
     for gg, d in ((gs, dev), (gc, torch.device("cpu"))):
         abt = torch.as_tensor(ab, device=d)
         dk = Ciphertexts(gg.enc.gen_table.mul(abt[0]), gg.enc.gen_table.mul(abt[1]))
@@ -612,32 +656,43 @@ def main() -> int:
         sh = elgamal.cipher_add(cv, perm, elgamal.encrypt_zero(gg.enc, gg.agg_table, rht))
         rd = type(rands)(*(t.to(d) for t in rands))
         pr = device_api.prove_shuffle(cv, ms_, ns_, gg.keys, dk, sh, pit, rht, rd)
-        leaves.append([t.cpu() for t in _leaves(pr)])
-    if any(not torch.equal(a_, b_) for a_, b_ in zip(*leaves)):
+        proof_leaves.append([t.cpu() for t in leaves(pr)])
+    if any(not torch.equal(a_, b_) for a_, b_ in zip(*proof_leaves)):
         raise AssertionError("the card's (2, 4) proof differs from the CPU plain versions' proof")
-    log(f"(2, 4) proof on the card equals the CPU plain proof: {len(leaves[0])} leaves")
+    log(f"(2, 4) proof on the card equals the CPU plain proof: {len(proof_leaves[0])} leaves")
 
     # -------------------------------------------------------------- 4. times
     f = fq
     n_mm = 2 * 2 * B * N  # the deck-root inversion: c0 and c1 of both decks
     a, _ = rand_field(f, n_mm)
     b, _ = rand_field(f, n_mm)
-    ms = cuda_ms(lambda: cuda_field.mont_mul(f, a, b), 20, 3)
-    dms = kernel_ms(lambda: cuda_field.mont_mul(f, a, b), KERNEL_FUNCTIONS["mont_mul"])
+    # the kernel timed on inputs out of L2 (`cold`), as its bytes bound
+    # at the HBM rate assumes
+    mm, copies = cold(lambda x, y: cuda_field.mont_mul(f, x, y), (a, b), n_mm * 3 * f.L * 4)
+    ms = cuda_ms(mm, 20, 3)
+    dms = kernel_ms(mm, KERNEL_FUNCTIONS["mont_mul"])
     plain = cuda_ms(lambda: cuda_field.mont_mul_plain(f, a, b), 5)
     bms, by = bound(n_mm * word_products(f.L) * 2, n_mm * 3 * f.L * 4)
     kernels["mont_mul"].update(ms=ms, device_ms=dms, plain_ms=plain, bound_ms=bms, bound_by=by,
-                               shape=f"{n_mm} Stark Fq elements")
-    log(f"mont_mul [{n_mm} x L=16]: {ms:.4f} ms (device {dms:.4f} ms), plain {plain:.3f} ms, bound {bms:.5f} ms ({by})")
+                               shape=f"{n_mm} Stark Fq elements", input_copies=copies)
+    log(f"mont_mul [{n_mm} x L=16]: {ms:.4f} ms (device {dms:.4f} ms; inputs cycled through {copies} copies, "
+        f"out of L2), plain {plain:.3f} ms, bound {bms:.5f} ms ({by})")
 
     n_pa = n_add
-    ms = cuda_ms(lambda: cuda_curve.point_add(cv, P, Q), 20, 3)
-    dms = kernel_ms(lambda: cuda_curve.point_add(cv, P, Q), KERNEL_FUNCTIONS["point_add"])
+    pa, copies = cold(lambda x, y: cuda_curve.point_add(cv, x, y), (P, Q), n_pa * 9 * f.L * 4)
+    ms = cuda_ms(pa, 20, 3)
+    dms = kernel_ms(pa, KERNEL_FUNCTIONS["point_add"])
     plain = cuda_ms(lambda: cuda_curve.point_add_plain(cv, P, Q), 5)
-    bms, by = bound(n_pa * ADD_PRODUCTS * word_products(f.L) * 2, n_pa * 9 * f.L * 4)
+    # the bound from the kernel's own SASS (phase 1); beside it the model of
+    # two IMADs per 32-bit word product, 14 products an addition
+    bms, by = bound(n_pa * add_imads, n_pa * 9 * f.L * 4)
+    model_ms, _ = bound(n_pa * ADD_PRODUCTS * word_products(f.L) * 2, n_pa * 9 * f.L * 4)
     kernels["point_add"].update(ms=ms, device_ms=dms, plain_ms=plain, bound_ms=bms, bound_by=by,
-                                shape=f"{n_pa} additions")
-    log(f"point_add [{n_pa}]: {ms:.4f} ms (device {dms:.4f} ms), plain {plain:.3f} ms, bound {bms:.5f} ms ({by})")
+                                bound_ms_model=model_ms, imads_per_add=add_imads, shape=f"{n_pa} additions",
+                                input_copies=copies)
+    log(f"point_add [{n_pa}]: {ms:.4f} ms (device {dms:.4f} ms; inputs cycled through {copies} copies, out of L2), "
+        f"plain {plain:.3f} ms, bound {bms:.5f} ms ({by}; {add_imads} IMADs an addition from the SASS), the "
+        f"two-IMADs-a-word-product model's {model_ms:.5f} ms; the bound over the device time {bms / dms:.2f}")
 
     # msm_lanes at every shape of phase 2c and at S = 1, N = 1 (the fold
     # alone, nearly); plain and bound at the prover diagonals
@@ -684,6 +739,18 @@ def main() -> int:
         kernels[k]["launches_multigame"] = multigame["launches"][k]
         kernels[k]["launches_deck1024"] = deck1024["launches"][k]
 
+    # --------------------------------------------------- 8. the parallel layer
+    bls_name = bls12_377_g1().host.name
+    compared8 = dict(
+        elementwise=elementwise_compared | {tuple(key) for key in multigame["elementwise_lanes"]},
+        lanes=lanes_compared | set(deck1024["shapes"]),
+        chunked=compared,
+        fold={(name, S) for name in (cv.host.name, bls_name) for S in EDGE_S + (BATCH,)},
+    )
+    parallel = parallel_phase(dev, g, data, proof, compared8, pv_ms, card)
+    for k in kernels:
+        kernels[k]["launches_parallel"] = parallel["launches"][k]
+
     meta = {
         "mont_mul": ("mental_poker_tpu_torch/csrc/field.cu", "mental_poker_tpu/ops/pallas/field.py:128"),
         "point_add": ("mental_poker_tpu_torch/csrc/curve.cu", "mental_poker_tpu/ops/pallas/curve.py:94"),
@@ -694,7 +761,8 @@ def main() -> int:
     extra = ("shape", "launches_b1", "launches_round", "launches_nc8", "launches_sweep", "ms_s128",
              "plain_ms_s128", "bound_ms_s128", "chain_ms", "msm_lanes_nc1_ms", "msm_lanes_nc8_ms",
              "ms_by_shape", "device_ms", "device_ms_s128", "device_ms_b128", "table_device_ms",
-             "window_device_ms", "ms_b1", "launches_multigame", "launches_deck1024")
+             "window_device_ms", "ms_b1", "launches_multigame", "launches_deck1024", "launches_parallel",
+             "bound_ms_model", "imads_per_add", "input_copies")
     rows = []
     for kname, (src, replaces) in meta.items():
         kv = kernels[kname]
@@ -710,7 +778,8 @@ def main() -> int:
                     "shuffle_argument_2x26_s": arg_s, "round_2x26_4p_4s_s": round_s,
                     "msm_s1_gather_vs_lanes_ms": engine_ms, "sweep_bls12_377_n300": sweep,
                     "multigame_64x8": {k: v for k, v in multigame.items() if k != "launches"},
-                    "msm_1024": msm1024, "deck1024": {k: v for k, v in deck1024.items() if k != "launches"}}))
+                    "msm_1024": msm1024, "deck1024": {k: v for k, v in deck1024.items() if k != "launches"},
+                    "parallel": {k: v for k, v in parallel.items() if k != "launches"}}))
     log(f"chip_smoke: {time.perf_counter() - started:.1f} s in all")
     print(json.dumps({"kernels": rows}))
     print(card)
@@ -1020,14 +1089,11 @@ def fold_phase(dev, g, kernels, batches=tuple(sorted(EDGE_S + (BATCH,)))) -> dic
     `batches` (the lane groups' edges, S = 128 and S = 1,000). The window
     sums are k[w, s] * B for a fixed base B (one window sum the identity), so
     the host check of the first and last statements is
-    (sum_w 2^(4w) k[w, s]) * B. Returns the kernel's row: times at S = 1 and
-    S = 128 on Stark (the host argument's combos give S = 1), its bound, and
-    the chain bound."""
-    import numpy as np
-    import torch
-
+    (sum_w 2^(4w) k[w, s]) * B (`fold_check`). Returns the kernel's row:
+    times at S = 1 and S = 128 on Stark (the host argument's combos give
+    S = 1), its bound, and the chain bound."""
     from mental_poker_tpu_torch.ops.cuda import curve as cuda_curve
-    from mental_poker_tpu_torch.ops.curve import PointP, bls12_377_g1, stark_curve
+    from mental_poker_tpu_torch.ops.curve import bls12_377_g1, stark_curve
     from mental_poker_tpu_torch.ops.msm import FixedBaseTable
     from mental_poker_tpu_torch.utils.rand import GameRng
 
@@ -1040,21 +1106,8 @@ def fold_phase(dev, g, kernels, batches=tuple(sorted(EDGE_S + (BATCH,)))) -> dic
         L, q = cv.fq.L, cv.host.order
         W = cuda_curve.FOLD_W[L]
         for S in batches:
-            kh = GameRng(W + S).scalar_limbs(q, (W, S), cv.fr.L).astype(np.int32)
-            kh[W - 1, 0] = 0  # the top window's sum of statement 0 is the identity
-            sums = table.mul(torch.as_tensor(kh, device=dev))  # [W, S] projective points
-            got = cuda_curve.fold_windows(cv, sums, c)
-            want = cuda_curve.fold_windows_plain(cv, sums, c)
-            torch.cuda.synchronize()
-            err = max_abs_err(got, want)
-            if err:
-                raise AssertionError(f"fold_windows {cv.name} W={W} S={S}: kernel differs from plain by {err}")
+            sums, err = fold_check(dev, cv, base, table, S)
             row["max_abs_err"] = max(row["max_abs_err"], err)
-            host = cv.to_host_points(PointP(*(t[[0, S - 1]] for t in got)))
-            for h, s in zip(host, (0, S - 1)):
-                total = sum(sum(int(v) << (16 * j) for j, v in enumerate(kh[w, s])) << (c * w) for w in range(W))
-                require(h == cv.host.mul(total % q, base), (cv.name, W, S, s))
-            log(f"fold_windows {cv.name} [W={W}, S={S}]: equal to plain; statements 0 and {S - 1} agree with host bigints")
             if cv.name != "stark" or S not in (1, BATCH):
                 continue
             ms = cuda_ms(lambda: cuda_curve.fold_windows(cv, sums, c), 20, 2)
@@ -1077,6 +1130,39 @@ def fold_phase(dev, g, kernels, batches=tuple(sorted(EDGE_S + (BATCH,)))) -> dic
             else:
                 row.update(ms_s128=ms, device_ms_s128=dms, plain_ms_s128=plain, bound_ms_s128=bms)
     return row
+
+
+def fold_check(dev, cv, base, table, S) -> tuple:
+    """`fold_windows` against its plain version at the curve's built-in W and
+    S statements, limb for limb; the window sums are k[w, s] * base from
+    `table` (the top window of statement 0 the identity), and statements 0
+    and S - 1 are checked against host bigints,
+    (sum_w 2^(4w) k[w, s]) * base. Returns the window sums and the error."""
+    import numpy as np
+    import torch
+
+    from mental_poker_tpu_torch.ops.cuda import curve as cuda_curve
+    from mental_poker_tpu_torch.ops.curve import PointP
+    from mental_poker_tpu_torch.utils.rand import GameRng
+
+    c = cuda_curve.FOLD_WINDOW
+    L, q = cv.fq.L, cv.host.order
+    W = cuda_curve.FOLD_W[L]
+    kh = GameRng(W + S).scalar_limbs(q, (W, S), cv.fr.L).astype(np.int32)
+    kh[W - 1, 0] = 0  # the top window's sum of statement 0 is the identity
+    sums = table.mul(torch.as_tensor(kh, device=dev))  # [W, S] projective points
+    got = cuda_curve.fold_windows(cv, sums, c)
+    want = cuda_curve.fold_windows_plain(cv, sums, c)
+    torch.cuda.synchronize()
+    err = max_abs_err(got, want)
+    if err:
+        raise AssertionError(f"fold_windows {cv.name} W={W} S={S}: kernel differs from plain by {err}")
+    host = cv.to_host_points(PointP(*(t[[0, S - 1]] for t in got)))
+    for h, s in zip(host, (0, S - 1)):
+        total = sum(sum(int(v) << (16 * j) for j, v in enumerate(kh[w, s])) << (c * w) for w in range(W))
+        require(h == cv.host.mul(total % q, base), (cv.name, W, S, s))
+    log(f"fold_windows {cv.name} [W={W}, S={S}]: equal to plain; statements 0 and {S - 1} agree with host bigints")
+    return sums, err
 
 
 def gather_phase(dev, g, sizes=tuple(range(1, 16)) + (26, 52)) -> dict:
@@ -1221,18 +1307,21 @@ def round_phase(dev, n=26, num_shuffles=4):
 @contextlib.contextmanager
 def elementwise_lanes(seen: set):
     """Record in `seen` a key (kernel, field or curve, lanes) for every
-    launch of the `mont_mul` and `point_add` kernels made inside the block."""
+    launch of the `mont_mul` and `point_add` kernels made inside the block
+    (a call on empty tensors launches nothing and is not recorded)."""
     from mental_poker_tpu_torch.ops.cuda import curve as cuda_curve
     from mental_poker_tpu_torch.ops.cuda import field as cuda_field
 
     mont_mul, point_add = cuda_field.mont_mul_cuda, cuda_curve.point_add_cuda
 
     def mont_mul_recording(fld, a, b):
-        seen.add(("mont_mul", fld.name, a.numel() // fld.L))
+        if a.numel():
+            seen.add(("mont_mul", fld.name, a.numel() // fld.L))
         return mont_mul(fld, a, b)
 
     def point_add_recording(cv, P, Q):
-        seen.add(("point_add", cv.host.name, P[0].numel() // P[0].shape[-1]))
+        if P[0].numel():
+            seen.add(("point_add", cv.host.name, P[0].numel() // P[0].shape[-1]))
         return point_add(cv, P, Q)
 
     cuda_field.mont_mul_cuda, cuda_curve.point_add_cuda = mont_mul_recording, point_add_recording
@@ -1306,6 +1395,7 @@ def multigame_phase(dev, g, elementwise_compared: set, profile_dir=None, G=64, P
     from mental_poker_tpu_torch.crypto import sigma_device, transcript_dev
     from mental_poker_tpu_torch.crypto.transcript import REVEAL_RNG_SEED
     from mental_poker_tpu_torch.ops import cuda as cuda_ops
+    from mental_poker_tpu_torch.parallel.sharding import leaves
 
     t0 = time.perf_counter()
     mg = bench.multigame_setup(G, P, m, n, dev)
@@ -1388,7 +1478,7 @@ def multigame_phase(dev, g, elementwise_compared: set, profile_dir=None, G=64, P
         with torch.inference_mode():
             res = bench.multigame_flow(bench.multigame_setup(2, 3, 2, 2, d))
         require(all(bool(c.all()) for c in res.checks), f"a small multigame check failed on {d}")
-        small.append([t.cpu() for t in _leaves(res.proofs)])
+        small.append([t.cpu() for t in leaves(res.proofs)])
     torch.set_num_threads(before)
     diff = [i for i, (a, b) in enumerate(zip(*small)) if not torch.equal(a, b)]
     require(not diff and len(small[0]) == 21, f"the card's small multigame proofs differ from the CPU's at {diff}")
@@ -1514,11 +1604,239 @@ def deck1024_phase(dev, g, lanes_compared: set, m=16, n=64) -> dict:
     return dict(prove_verify_s=pv_s, shapes=sorted(seen), launches=launches)
 
 
-def _leaves(tree):
-    if isinstance(tree, tuple):
-        return [leaf for t in tree for leaf in _leaves(t)]
-    return [tree]
+@contextlib.contextmanager
+def fold_shapes(seen: set):
+    """Record in `seen` the key (curve, statements) of every fold-kernel
+    launch made inside the block."""
+    from mental_poker_tpu_torch.ops.cuda import curve as cuda_curve
 
+    launch = cuda_curve.fold_windows_cuda
+
+    def recording(cv, S, c):
+        seen.add((cv.host.name, S[0].numel() // (S[0].shape[0] * S[0].shape[-1])))
+        return launch(cv, S, c)
+
+    cuda_curve.fold_windows_cuda = recording
+    try:
+        yield seen
+    finally:
+        cuda_curve.fold_windows_cuda = launch
+
+
+def sass_counts(kernel: str, src: str) -> dict:
+    """Static instruction counts of each instantiation of `kernel` in the
+    library built from `src`, from `cuobjdump -sass`: every IMAD flavour and
+    every branch by its full opcode, and all instructions ("all")."""
+    import re
+    import shutil
+
+    from mental_poker_tpu_torch.ops.cuda import build
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    text = subprocess.run([tool, "-sass", str(build.lib_path(src))], capture_output=True, text=True,
+                          timeout=120, check=True).stdout
+    counts, name = {}, None
+    for line in text.splitlines():
+        fn = re.search(r"Function : (\S+)", line)
+        if fn:
+            name = fn.group(1) if kernel in fn.group(1) else None
+            if name:
+                counts[name] = {"all": 0}
+            continue
+        ins = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)", line)
+        if name and ins:
+            op, c = ins.group(1), counts[name]
+            c["all"] += 1
+            if op.startswith(("IMAD", "BRA")):
+                c[op] = c.get(op, 0) + 1
+    return counts
+
+
+def imad_count(counts: dict) -> int:
+    """IMAD instructions among SASS opcode counts, every flavour (.WIDE,
+    .HI, the carry forms .X, .MOV) counted once against the integer
+    multiply-add pipe's `IMAD_PER_SM_CLOCK`: the CUDA C++ Programming
+    Guide gives one rate for "32-bit integer multiply, multiply-add,
+    extended-precision multiply-add", and counting each IMAD.WIDE twice
+    would put a device reading of 0.0091 ms at 65,536 additions above the
+    card's peak."""
+    return sum(v for op, v in counts.items() if op.startswith("IMAD"))
+
+
+def parallel_phase(dev, g, data, proof, compared: dict, pv_ms: float, card: str) -> dict:
+    """8. The parallel layer (`mental_poker_tpu_torch/parallel/`, seventh
+    slice) on the main path's B = 128 decks at (2, 26), `msm_nc = 1` but
+    where it says otherwise.
+
+    The path, at world size 1 on NCCL (`make_mesh`: a one-rank group over a
+    local store; every collective runs and gathers one shard), with the
+    launch counts set to 0 just before it and read just after:
+    `sharded_remask_step`, `sharded_deck_msm`, `sharded_window_msm` and
+    `sharded_prefix_prod` on [128, 52] Fr values, `sharded_commit_step` on
+    [128, 2, 26], the deck MSM again at `msm_nc = 8`, and the dry run's
+    tier 2 (`shard_batch`, prove, verify, `gather_batch`). Each kernel must
+    have been launched in it. Then the checks: the tier-2 proof equal leaf
+    for leaf to phase 3's unsharded proof of the same inputs; the remask,
+    deck MSM, window MSM and prefix product each held against the
+    unsharded path on the same tensors (limb for limb for the remask and
+    the prefix product, as points for the deck MSM against `cipher_msm`
+    and the window MSM against `msm` and the deck MSM) and timed beside it
+    (median of three, host clock, synchronised). `sharded_commit_step` is
+    `ck.commit` on the rank's rows, with no collective, so it has no such
+    row. Then D = 1, 2 and 4 ranks (`sharding.run_ranks`: sp = D; dp = D
+    for the commit and the prove): every rank's local step in turn, timed,
+    the gathers emulated, the combines; each result equal to the world size
+    1 result, its launches counted apart. Last, every launch at a shape
+    that `compared` (kind -> keys) does not hold is held against the
+    kernel's plain version. Returns the times, the path's launches, the
+    rank-by-rank launches and the shapes checked."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from mental_poker_tpu_torch import config
+    from mental_poker_tpu_torch.arguments import device_api
+    from mental_poker_tpu_torch.crypto import elgamal
+    from mental_poker_tpu_torch.crypto.pedersen import CommitKey
+    from mental_poker_tpu_torch.ops import cuda as cuda_ops
+    from mental_poker_tpu_torch.ops import msm as msm_mod
+    from mental_poker_tpu_torch.parallel import dryrun, sharding
+    from mental_poker_tpu_torch.parallel.sharding import block, leaves
+    from mental_poker_tpu_torch.utils.rand import GameRng
+
+    t_start = time.perf_counter()
+    cv, fr, m, n = g.cv, g.cv.fr, g.m, g.n
+    deck, shuffled, pi, rho, rand = data
+    B, N = pi.shape
+    r = GameRng(808)
+    lim = lambda *shape: torch.as_tensor(r.scalar_limbs(cv.host.order, shape, fr.L).astype(np.int32), device=dev)
+    k, a, vecs, rs = lim(B, N), fr.to_mont(lim(B, N)), lim(B, m, n), lim(B, m)
+    ck = CommitKey(cv, g.commit_g, g.commit_h, WINDOW, dev)
+    gen, pk = g.enc.gen_table, g.agg_table
+
+    def clock(fn, reps=3):
+        """(the last result, the median ms of `reps` calls)."""
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return out, sorted(times)[len(times) // 2]
+
+    def same(x, y) -> bool:
+        """Limb for limb (and flag for flag)."""
+        return len(leaves(x)) == len(leaves(y)) and all(torch.equal(p, q) for p, q in zip(leaves(x), leaves(y)))
+
+    def points(x, y) -> bool:
+        """As points: a PointP, or both points of a Ciphertexts."""
+        pairs = zip(x, y) if isinstance(x, elgamal.Ciphertexts) else [(x, y)]
+        return all(bool(cv.eq(P, Q).all()) for P, Q in pairs)
+
+    mesh = sharding.make_mesh(device=dev)
+    log(f"parallel: world size {dist.get_world_size()} on {dist.get_backend()}, mesh {mesh.mesh_dim_names} "
+        f"{tuple(mesh.shape)}; {card}")
+    sh = lambda t: sharding.shard_deck(mesh, t)
+    rows = lambda t: block(t, 0, *sharding.mesh_index(mesh, "dp"))
+    sharded = {
+        "remask": lambda: sharding.sharded_remask_step(cv, gen, pk, mesh)(sh(deck), sh(pi), sh(rho)),
+        "deck_msm": lambda: sharding.sharded_deck_msm(cv, mesh)(*sh(deck), sh(k)),
+        "window_msm": lambda: sharding.sharded_window_msm(cv, mesh)(deck.c0, k),
+        "prefix_prod": lambda: sharding.sharded_prefix_prod(fr, mesh)(sh(a)),
+        "commit": lambda: sharding.sharded_commit_step(ck, mesh)(rows(vecs), rows(rs)),
+    }
+    seen = {kind: set() for kind in ("elementwise", "lanes", "chunked", "fold")}
+    ms, local_ms = {}, {}
+    with elementwise_lanes(seen["elementwise"]), lanes_shapes(seen["lanes"]), chunked_shapes(seen["chunked"]), \
+            fold_shapes(seen["fold"]):
+        # the path alone, its launches counted
+        torch.cuda.synchronize()
+        cuda_ops.reset_launches()
+        res = {name: fn() for name, fn in sharded.items()}
+        with config.override(msm_nc=NC):
+            p8, t8 = clock(sharded["deck_msm"], 1)
+        (proof_g, _), t_pv = clock(lambda: dryrun.tier2(mesh, m, n, g.keys, deck, shuffled, pi, rho, rand), 1)
+        torch.cuda.synchronize()
+        launches = dict(cuda_ops.LAUNCHES)
+        log(f"parallel: launches of the path at world size 1 (the five sharded steps, the deck MSM at "
+            f"msm_nc = {NC}, tier 2) {launches}")
+        for kname, v in launches.items():
+            require(v > 0, f"the parallel path did not launch kernel {kname}")
+
+        require(same(proof_g, proof), "parallel: the tier-2 proof differs from the unsharded proof")
+        require(points(p8, res["deck_msm"]), f"parallel deck_msm at msm_nc = {NC} differs from nc = 1")
+        ms["deck_msm_nc8"] = dict(sharded=t8)
+        ms["prove_verify"] = dict(sharded=t_pv, unsharded=pv_ms)
+        log(f"parallel deck_msm at msm_nc = {NC}: {t8:.3f} ms, equal as points; tier 2 (B={B}, shard_batch, "
+            f"prove, verify, gather_batch): {t_pv:.1f} ms (phase 3's unsharded prove+verify {pv_ms:.1f} ms), "
+            f"every flag true, the proof equal to phase 3's leaf for leaf")
+        unsharded = {
+            "remask": (lambda: sharding.remask_shuffled_step(cv, gen, pk)(deck, pi, rho), same),
+            "deck_msm": (lambda: elgamal.cipher_msm(cv, deck, k), points),
+            "window_msm": (lambda: msm_mod.msm(cv, deck.c0, k), points),
+            "prefix_prod": (lambda: fr.prefix_prod(a, axis=1), same),
+        }
+        for name, (plain, equal) in unsharded.items():
+            _, t_sh = clock(sharded[name])
+            want, t_un = clock(plain)
+            require(equal(res[name], want), f"parallel {name}: the world size 1 result differs from the unsharded path")
+            ms[name] = dict(sharded=t_sh, unsharded=t_un)
+            log(f"parallel {name} [B={B}, N={N}], world size 1: sharded {t_sh:.3f} ms, unsharded {t_un:.3f} ms; "
+                f"equal {'limb for limb' if equal is same else 'as points'}")
+        require(points(res["window_msm"], res["deck_msm"].c0), "parallel: the window MSM differs from the deck MSM")
+
+        prove = lambda *rows_: device_api.prove_shuffle(cv, m, n, g.keys, *rows_)
+        steps = {
+            "remask": (sharding.remask_step(cv, gen, pk), (deck, pi, rho)),
+            "deck_msm": (sharding.deck_msm_step(cv), (*deck, k)),
+            "window_msm": (sharding.window_msm_step(cv), (deck.c0, k)),
+            "prefix_prod": (sharding.prefix_prod_step(fr), (a,)),
+            "commit": (sharding.commit_step(ck), (vecs, rs)),
+            "prove": (sharding.batch_step(prove, 5), (deck, shuffled, pi, rho, rand)),
+        }
+        want = {**res, "window_msm": res["deck_msm"].c0, "prove": proof}
+        torch.cuda.synchronize()
+        cuda_ops.reset_launches()
+        for D in (1, 2, 4):
+            for name, (step, whole) in steps.items():
+                times = []
+
+                def timed(fn):
+                    out, t = clock(fn, 1)
+                    times.append(t)
+                    return out
+
+                out = sharding.run_ranks(step, D, *whole, call=timed)
+                equal = points if name in ("deck_msm", "window_msm") else same
+                require(equal(out, want[name]), f"parallel {name} at D = {D}: the combined result differs from world size 1")
+                local_ms.setdefault(name, {})[D] = times
+            log(f"parallel D={D}: every rank's local step, gathers emulated, combined: equal to world size 1; "
+                f"local steps (ms, by rank): " + "; ".join(f"{k_} {[round(t, 3) for t in v[D]]}" for k_, v in local_ms.items()))
+        torch.cuda.synchronize()
+        launches_ranks = dict(cuda_ops.LAUNCHES)
+    log(f"parallel: launches of the rank-by-rank runs at D = 1, 2, 4 (not the path's) {launches_ranks}")
+
+    t0 = time.perf_counter()
+    new = {kind: sorted(seen[kind] - compared[kind]) for kind in seen}
+    for i, key in enumerate(new["elementwise"]):
+        elementwise_check(dev, g, key, 901 + 2 * i)
+    for i, (curve, S, Nm) in enumerate(new["lanes"]):
+        require(curve == cv.host.name, curve)
+        lanes_check(dev, cv, g.generator, gen, S, Nm, 951 + 2 * i, "parallel shape")
+    for i, (curve, S, Nm, nck) in enumerate(new["chunked"]):
+        require(curve == cv.host.name, curve)
+        key, _ = chunked_check(dev, cv, g.generator, gen, S, Nm, nck, 971 + 2 * i, "parallel shape")
+        require(key == (curve, S, Nm, nck), (key, nck))
+    for curve, S in new["fold"]:
+        require(curve == cv.host.name, curve)
+        fold_check(dev, cv, g.generator, gen, S)
+    log(f"parallel: every kernel equal to plain at the phase's new shapes ({ {k_: len(v) for k_, v in new.items()} } "
+        f"of { {k_: len(v) for k_, v in seen.items()} }; {time.perf_counter() - t0:.1f} s)")
+    dist.destroy_process_group()
+    log(f"parallel: phase 8 took {time.perf_counter() - t_start:.1f} s")
+    return dict(ms=ms, local_ms=local_ms, launches=launches, launches_ranks=launches_ranks,
+                new_shapes={k_: len(v) for k_, v in new.items()})
 
 if __name__ == "__main__":
     sys.exit(main())

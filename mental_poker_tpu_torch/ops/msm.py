@@ -5,7 +5,9 @@
   lane kernel, or its chunked form when `config.msm_nc` > 1), after the
   wide-split mapping spreads the points of few-statement calls over several
   statements; and, for one statement of
-  fewer than 16 points, the gather engine (`msm_gather`), which ends in the
+  fewer than 16 points, the gather engine (`msm_gather`): the window sums
+  of `gather_window_sums` (which the TP window MSM of
+  `parallel/sharding.py` calls over a range of windows), then the
   window-fold kernel (`ops/cuda/curve.py::fold_windows`).
 - Fixed-base multiply/MSM (`FixedBaseTable`, `FixedBaseMSM`): full window
   tables T[w][d] = d * 2^(c w) * B built once per base, so a multiply is a
@@ -105,19 +107,33 @@ def msm(cv: Curve, points: PointP, scalars: torch.Tensor, engine: str | None = N
 def msm_gather(cv: Curve, P: PointP, k: torch.Tensor) -> PointP:
     """The gather engine (`mental_poker_tpu/ops/msm.py::_msm_impl`) on flat
     statements: P coordinates [S, N, L], k canonical limbs [S, N, Lk] ->
-    PointP [S, L]. Per-point multiples tables, one gather of every window's
-    entry [W, S, N, L], a tree sum over N, then the window fold
-    (`ops/cuda/curve.py::fold_windows`, the kernel on the card)."""
+    PointP [S, L]. The window sums of every window (`gather_window_sums`),
+    then the window fold (`ops/cuda/curve.py::fold_windows`, the kernel on
+    the card)."""
+    c = cuda_curve.FOLD_WINDOW
+    W = -(-cv.fr.bits // c)
+    return PointP(*cuda_curve.fold_windows(cv, gather_window_sums(cv, P, k, 0, W), c))
+
+
+def gather_window_sums(cv: Curve, P: PointP, k: torch.Tensor, w0: int, w1: int) -> PointP:
+    """Window sums S_w = sum_i digit_w(k_i) * P_i for the windows w0 <= w < w1
+    (c = `FOLD_WINDOW` bits, window 0 least significant): P coordinates
+    [S, N, L], k canonical limbs [S, N, Lk] -> PointP [w1 - w0, S, L].
+    Per-point multiples tables, one gather of each window's entry
+    [w1 - w0, S, N, L], a tree sum over N. Windows at or past W (padding
+    of a range split into equal parts) have digit 0: the identity."""
     c = cuda_curve.FOLD_WINDOW
     S, N, L = P.x.shape
     table = cv.multiples_table(P, c)  # [S, N, T, L]
     T = table.x.shape[-2]
     digits = scalar_digits(k, c, cv.fr.bits).long()  # [W, S, N]
+    W = digits.shape[0]
+    if w1 > W:
+        digits = torch.cat([digits, digits.new_zeros((w1 - W, S, N))])
     row = torch.arange(S * N, device=k.device).reshape(S, N) * T
-    flat_idx = row + digits  # [W, S, N]
-    pts = map_point(lambda q: q.reshape(S * N * T, L)[flat_idx], table)  # [W, S, N, L]
-    sums = cv.sum_points(pts, axis=2)  # [W, S, L]
-    return PointP(*cuda_curve.fold_windows(cv, sums, c))
+    flat_idx = row + digits[w0:w1]  # [w1 - w0, S, N]
+    pts = map_point(lambda q: q.reshape(S * N * T, L)[flat_idx], table)  # [w1 - w0, S, N, L]
+    return cv.sum_points(pts, axis=2)
 
 
 def build_window_tables(cv: Curve, bases: PointP, c: int) -> PointP:
