@@ -89,6 +89,19 @@ Phases (every failure exits non-zero; nothing is caught and ignored):
    gathers emulated, each combined result equal to world size 1; and every
    kernel launch at a shape no earlier phase compared held against its
    plain version.
+9. The bench's knobs (eighth slice; `bench_phase`): the bench's shuffle52
+   at B = 128, (2, 26) with the stage report on (`MPTPU_STAGE_TIMING`),
+   launch counts read around it alone: every stage named, each stage's
+   calls the flow's, their steady times summed within the mean run, and
+   phase 3's batch proved with timing on equal to phase 3's proof leaf for
+   leaf; a timed and a traced run of the same set-up (`MPTPU_PROFILE`):
+   the stage report printed before the trace and without the traced run,
+   the Chrome trace written, the device-busy ms, idle share (also against
+   phase 3's untraced median), device ms by kernel and by stage and the
+   top operations printed, the three staged kernels among them; `bench.main()` at `MPTPU_BENCH_BATCH=1` and at
+   `MPTPU_BENCH_SMOKE=1`; and the dp scaling curve (`parallel/scaling.py`)
+   at world size 1 on NCCL, B = 128, (2, 26). Every launch at a shape no
+   earlier phase compared is held against its plain version.
 
 Every phase runs with `msm_nc = 1` (the per-statement MSM kernel) unless it
 says otherwise, whatever `MPTPU_MSM_NC` holds.
@@ -238,39 +251,9 @@ def cold(fn, args: tuple, nbytes: int):
     return (lambda: fn(*next(copies))), n
 
 
-# Device-side kernel names (csrc/) of each wrapper's launches: msm_lanes at
-# nc = 1 launches the table kernel and the window/fold kernel.
-KERNEL_FUNCTIONS = {
-    "mont_mul": ("mont_mul_kernel",),
-    "point_add": ("point_add_kernel",),
-    "msm_lanes": ("msm_table_kernel", "msm_window_fold_kernel"),
-    "fold_windows": ("fold_windows_kernel",),
-    "msm_chunked": ("msm_chunked_window_kernel",),
-}
-# msm_chunked's two launches, timed apart
+# msm_chunked's two launches, timed apart (device-side names; each
+# wrapper's are `profiling.KERNEL_FUNCTIONS`)
 CHUNKED_SPLIT = {"table": ("msm_table_kernel",), "window": ("msm_chunked_window_kernel",)}
-
-
-def _device_ms(averages, names) -> float:
-    """Device time (ms) of the profiled kernels whose names contain one of
-    `names` (all device work for None), from key_averages()."""
-    from torch.autograd import DeviceType
-
-    total = 0.0
-    for ev in averages:
-        if ev.device_type == DeviceType.CUDA and (names is None or any(n in ev.key for n in names)):
-            us = getattr(ev, "self_device_time_total", None)
-            total += (ev.self_cuda_time_total if us is None else us) / 1e3
-    return total
-
-
-def kernel_device_ms(averages) -> dict:
-    """Device time (ms) of one profiled run, summed over every launch, for
-    each of the port's kernels (by its device-side names) and for all device
-    work ("all")."""
-    out = {k: _device_ms(averages, names) for k, names in KERNEL_FUNCTIONS.items()}
-    out["all"] = _device_ms(averages, None)
-    return out
 
 
 def kernel_ms_by(fn, groups: dict, reps: int = 10) -> dict:
@@ -282,14 +265,16 @@ def kernel_ms_by(fn, groups: dict, reps: int = 10) -> dict:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from mental_poker_tpu_torch import profiling
+
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    averages = prof.key_averages()
-    return {key: _device_ms(averages, names) / reps for key, names in groups.items()}
+    spans = profiling.device_spans(prof)
+    return {key: profiling.device_ms(spans, names) / reps for key, names in groups.items()}
 
 
 def kernel_ms(fn, names, reps: int = 10) -> float:
@@ -319,7 +304,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, HERE)
 
-    from mental_poker_tpu_torch import bench, config, params
+    from mental_poker_tpu_torch import bench, config, params, profiling
     from mental_poker_tpu_torch.arguments import device_api
     from mental_poker_tpu_torch.crypto import elgamal
     from mental_poker_tpu_torch.crypto.elgamal import Ciphertexts
@@ -587,7 +572,7 @@ def main() -> int:
         with open(os.path.join(args.profile, "profile_b%d.txt" % B), "w") as fh:
             fh.write(table)
         log(table)
-        device_ms = kernel_device_ms(averages)
+        device_ms = profiling.kernel_device_ms(profiling.device_spans(prof))
         for k, v in device_ms.items():
             if k in kernels:
                 kernels[k]["device_ms_b128"] = v
@@ -670,7 +655,7 @@ def main() -> int:
     # at the HBM rate assumes
     mm, copies = cold(lambda x, y: cuda_field.mont_mul(f, x, y), (a, b), n_mm * 3 * f.L * 4)
     ms = cuda_ms(mm, 20, 3)
-    dms = kernel_ms(mm, KERNEL_FUNCTIONS["mont_mul"])
+    dms = kernel_ms(mm, profiling.KERNEL_FUNCTIONS["mont_mul"])
     plain = cuda_ms(lambda: cuda_field.mont_mul_plain(f, a, b), 5)
     bms, by = bound(n_mm * word_products(f.L) * 2, n_mm * 3 * f.L * 4)
     kernels["mont_mul"].update(ms=ms, device_ms=dms, plain_ms=plain, bound_ms=bms, bound_by=by,
@@ -681,7 +666,7 @@ def main() -> int:
     n_pa = n_add
     pa, copies = cold(lambda x, y: cuda_curve.point_add(cv, x, y), (P, Q), n_pa * 9 * f.L * 4)
     ms = cuda_ms(pa, 20, 3)
-    dms = kernel_ms(pa, KERNEL_FUNCTIONS["point_add"])
+    dms = kernel_ms(pa, profiling.KERNEL_FUNCTIONS["point_add"])
     plain = cuda_ms(lambda: cuda_curve.point_add_plain(cv, P, Q), 5)
     # the bound from the kernel's own SASS (phase 1); beside it the model of
     # two IMADs per 32-bit word product, 14 products an addition
@@ -706,7 +691,7 @@ def main() -> int:
         log(f"msm_lanes [{name}: S={S}, N={Nm}]: {ms:.3f} ms")
         if not name.startswith("prover"):
             continue
-        dms = kernel_ms(lambda: cuda_msm.msm_lanes(cv, pts, kk), KERNEL_FUNCTIONS["msm_lanes"])
+        dms = kernel_ms(lambda: cuda_msm.msm_lanes(cv, pts, kk), profiling.KERNEL_FUNCTIONS["msm_lanes"])
         plain = cuda_ms(lambda: cuda_msm.msm_lanes_plain(cv, pts, kk), 1, 0)
         # per statement: the multiples tables, the window sums, the fold
         adds = S * Nm * ((1 << c) - 2) + S * W * Nm + S * W
@@ -751,6 +736,12 @@ def main() -> int:
     for k in kernels:
         kernels[k]["launches_parallel"] = parallel["launches"][k]
 
+    # ------------------------------------------------ 9. the bench's knobs
+    seen8 = parallel.pop("seen")  # phase 8 held each of these against plain
+    bench9 = bench_phase(dev, g, data, proof, prove_verify, {k: compared8[k] | seen8[k] for k in compared8}, pv_ms)
+    for k in kernels:
+        kernels[k]["launches_bench"] = bench9["launches"][k]
+
     meta = {
         "mont_mul": ("mental_poker_tpu_torch/csrc/field.cu", "mental_poker_tpu/ops/pallas/field.py:128"),
         "point_add": ("mental_poker_tpu_torch/csrc/curve.cu", "mental_poker_tpu/ops/pallas/curve.py:94"),
@@ -761,7 +752,7 @@ def main() -> int:
     extra = ("shape", "launches_b1", "launches_round", "launches_nc8", "launches_sweep", "ms_s128",
              "plain_ms_s128", "bound_ms_s128", "chain_ms", "msm_lanes_nc1_ms", "msm_lanes_nc8_ms",
              "ms_by_shape", "device_ms", "device_ms_s128", "device_ms_b128", "table_device_ms",
-             "window_device_ms", "ms_b1", "launches_multigame", "launches_deck1024", "launches_parallel",
+             "window_device_ms", "ms_b1", "launches_multigame", "launches_deck1024", "launches_parallel", "launches_bench",
              "bound_ms_model", "imads_per_add", "input_copies")
     rows = []
     for kname, (src, replaces) in meta.items():
@@ -779,7 +770,8 @@ def main() -> int:
                     "msm_s1_gather_vs_lanes_ms": engine_ms, "sweep_bls12_377_n300": sweep,
                     "multigame_64x8": {k: v for k, v in multigame.items() if k != "launches"},
                     "msm_1024": msm1024, "deck1024": {k: v for k, v in deck1024.items() if k != "launches"},
-                    "parallel": {k: v for k, v in parallel.items() if k != "launches"}}))
+                    "parallel": {k: v for k, v in parallel.items() if k != "launches"},
+                    "bench": {k: v for k, v in bench9.items() if k != "launches"}}))
     log(f"chip_smoke: {time.perf_counter() - started:.1f} s in all")
     print(json.dumps({"kernels": rows}))
     print(card)
@@ -1092,6 +1084,7 @@ def fold_phase(dev, g, kernels, batches=tuple(sorted(EDGE_S + (BATCH,)))) -> dic
     (sum_w 2^(4w) k[w, s]) * B (`fold_check`). Returns the kernel's row:
     times at S = 1 and S = 128 on Stark (the host argument's combos give
     S = 1), its bound, and the chain bound."""
+    from mental_poker_tpu_torch import profiling
     from mental_poker_tpu_torch.ops.cuda import curve as cuda_curve
     from mental_poker_tpu_torch.ops.curve import bls12_377_g1, stark_curve
     from mental_poker_tpu_torch.ops.msm import FixedBaseTable
@@ -1111,7 +1104,7 @@ def fold_phase(dev, g, kernels, batches=tuple(sorted(EDGE_S + (BATCH,)))) -> dic
             if cv.name != "stark" or S not in (1, BATCH):
                 continue
             ms = cuda_ms(lambda: cuda_curve.fold_windows(cv, sums, c), 20, 2)
-            dms = kernel_ms(lambda: cuda_curve.fold_windows(cv, sums, c), KERNEL_FUNCTIONS["fold_windows"])
+            dms = kernel_ms(lambda: cuda_curve.fold_windows(cv, sums, c), profiling.KERNEL_FUNCTIONS["fold_windows"])
             plain = cuda_ms(lambda: cuda_curve.fold_windows_plain(cv, sums, c), 2, 1)
             bms, by = bound(S * (W * ADD_PRODUCTS + c * W * DBL_PRODUCTS) * word_products(L) * 2,
                             (S * W + S) * 3 * L * 4)
@@ -1451,25 +1444,18 @@ def multigame_phase(dev, g, elementwise_compared: set, profile_dir=None, G=64, P
     log(f"multigame: {G / med:.3f} games/s (median of runs {[round(r, 3) for r in runs]} s)")
     trace = {}
     if profile_dir:
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile
+        from mental_poker_tpu_torch import profiling
 
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            bench.multigame_flow(mg)
-            torch.cuda.synchronize()
-            traced_s = time.perf_counter() - t0
-        averages = prof.key_averages()
-        with open(os.path.join(profile_dir, "profile_multigame.txt"), "w") as fh:
-            fh.write(averages.table(sort_by="device_time_total", row_limit=30))
-        by_kernel = kernel_device_ms(averages)
-        device_launches = sum(ev.count for ev in averages if ev.device_type == DeviceType.CUDA)
-        busy_s = by_kernel["all"] / 1e3
-        trace = dict(device_ms_by_kernel=by_kernel, device_launches=device_launches, traced_flow_s=traced_s,
-                     idle_share_of_median=1 - busy_s / med, idle_share_of_traced=1 - busy_s / traced_s)
-        log(f"multigame trace: device busy {by_kernel['all']:.3f} ms ({device_launches} device launches) in a "
-            f"{traced_s:.3f} s traced flow; idle {trace['idle_share_of_median']:.4f} of the median flow, "
-            f"{trace['idle_share_of_traced']:.4f} of the traced one; by kernel (ms): {by_kernel}")
+        tr = profiling.trace(lambda: bench.multigame_flow(mg), profile_dir, "multigame", dev)
+        by_kernel, traced_s = tr["kernel_device_ms"], tr["wall_s"]
+        busy_s = tr["device_busy_ms"] / 1e3
+        trace = dict(device_ms_by_kernel=by_kernel, device_launches=tr["device_launches"], traced_flow_s=traced_s,
+                     idle_share_of_median=1 - busy_s / med, idle_share_of_traced=tr["idle_share_of_traced"],
+                     top_device_ops=tr["top_ops"])
+        log(f"multigame trace ({tr['trace']}): device busy {tr['device_busy_ms']:.3f} ms ({tr['device_launches']} "
+            f"device launches) in a {traced_s:.3f} s traced flow; idle {trace['idle_share_of_median']:.4f} of the "
+            f"median flow, {trace['idle_share_of_traced']:.4f} of the traced one; by kernel (ms): {by_kernel}; "
+            f"top device operations: {tr['top_ops']}")
 
     small = []
     before = torch.get_num_threads()
@@ -1746,10 +1732,8 @@ def parallel_phase(dev, g, data, proof, compared: dict, pv_ms: float, card: str)
         "prefix_prod": lambda: sharding.sharded_prefix_prod(fr, mesh)(sh(a)),
         "commit": lambda: sharding.sharded_commit_step(ck, mesh)(rows(vecs), rows(rs)),
     }
-    seen = {kind: set() for kind in ("elementwise", "lanes", "chunked", "fold")}
     ms, local_ms = {}, {}
-    with elementwise_lanes(seen["elementwise"]), lanes_shapes(seen["lanes"]), chunked_shapes(seen["chunked"]), \
-            fold_shapes(seen["fold"]):
+    with kernel_shapes() as seen:
         # the path alone, its launches counted
         torch.cuda.synchronize()
         cuda_ops.reset_launches()
@@ -1817,26 +1801,234 @@ def parallel_phase(dev, g, data, proof, compared: dict, pv_ms: float, card: str)
         launches_ranks = dict(cuda_ops.LAUNCHES)
     log(f"parallel: launches of the rank-by-rank runs at D = 1, 2, 4 (not the path's) {launches_ranks}")
 
+    new = check_new_shapes(dev, g, seen, compared, 901, "parallel")
+    dist.destroy_process_group()
+    log(f"parallel: phase 8 took {time.perf_counter() - t_start:.1f} s")
+    return dict(ms=ms, local_ms=local_ms, launches=launches, launches_ranks=launches_ranks,
+                new_shapes={k_: len(v) for k_, v in new.items()}, seen=seen)
+
+
+@contextlib.contextmanager
+def kernel_shapes():
+    """Record the shape key of every kernel launch made inside the block, by
+    kind: {"elementwise": `elementwise_lanes` keys, "lanes":
+    `lanes_shapes`', "chunked": `chunked_shapes`', "fold": `fold_shapes`'}."""
+    seen = {kind: set() for kind in ("elementwise", "lanes", "chunked", "fold")}
+    with elementwise_lanes(seen["elementwise"]), lanes_shapes(seen["lanes"]), chunked_shapes(seen["chunked"]), \
+            fold_shapes(seen["fold"]):
+        yield seen
+
+
+def check_new_shapes(dev, g, seen: dict, compared: dict, seed: int, where: str) -> dict:
+    """Every launch of `seen` (`kernel_shapes`) at a shape that `compared`
+    (kind -> keys) does not hold, held against the kernel's plain version
+    on the Stark curve of `g`. Returns the new keys by kind."""
+    cv, gen = g.cv, g.enc.gen_table
     t0 = time.perf_counter()
     new = {kind: sorted(seen[kind] - compared[kind]) for kind in seen}
     for i, key in enumerate(new["elementwise"]):
-        elementwise_check(dev, g, key, 901 + 2 * i)
+        elementwise_check(dev, g, key, seed + 2 * i)
     for i, (curve, S, Nm) in enumerate(new["lanes"]):
         require(curve == cv.host.name, curve)
-        lanes_check(dev, cv, g.generator, gen, S, Nm, 951 + 2 * i, "parallel shape")
+        lanes_check(dev, cv, g.generator, gen, S, Nm, seed + 50 + 2 * i, f"{where} shape")
     for i, (curve, S, Nm, nck) in enumerate(new["chunked"]):
         require(curve == cv.host.name, curve)
-        key, _ = chunked_check(dev, cv, g.generator, gen, S, Nm, nck, 971 + 2 * i, "parallel shape")
+        key, _ = chunked_check(dev, cv, g.generator, gen, S, Nm, nck, seed + 70 + 2 * i, f"{where} shape")
         require(key == (curve, S, Nm, nck), (key, nck))
     for curve, S in new["fold"]:
         require(curve == cv.host.name, curve)
         fold_check(dev, cv, g.generator, gen, S)
-    log(f"parallel: every kernel equal to plain at the phase's new shapes ({ {k_: len(v) for k_, v in new.items()} } "
+    log(f"{where}: every kernel equal to plain at the phase's new shapes ({ {k_: len(v) for k_, v in new.items()} } "
         f"of { {k_: len(v) for k_, v in seen.items()} }; {time.perf_counter() - t0:.1f} s)")
-    dist.destroy_process_group()
-    log(f"parallel: phase 8 took {time.perf_counter() - t_start:.1f} s")
-    return dict(ms=ms, local_ms=local_ms, launches=launches, launches_ranks=launches_ranks,
-                new_shapes={k_: len(v) for k_, v in new.items()})
+    return new
+
+
+@contextlib.contextmanager
+def environment(**values):
+    """The block with the `MPTPU_*` knobs of the bench and the scaling curve
+    unset but `values` (str), and the process config re-read from them; the
+    environment and the config restored after."""
+    from mental_poker_tpu_torch import config
+
+    saved, cfg = dict(os.environ), config.get_config()
+    for k in [k for k in os.environ if k.startswith("MPTPU_")]:
+        del os.environ[k]
+    os.environ.update(values)
+    config.set_config(None)
+    try:
+        yield
+    finally:
+        os.environ.clear()
+        os.environ.update(saved)
+        config.set_config(cfg)
+
+
+STAGE_NAMES = ("stmt", "commit", "abs_pts", "abs_const", "abs_me", "make_a", "make_b", "prod_prep", "had_mids",
+               "had_prep", "zero_prep", "zero_open", "svp_prep", "svp_open", "me_prep", "me_open", "ver_prep",
+               "coeffs", "combo", "flags")
+
+
+def stage_calls(curve: str, n: int) -> dict:
+    """The stage calls of one prove+verify at (2, n) (`arguments/staged.py`),
+    by the JAX package's program keys: the commits by their count K, the
+    absorbs by (K, challenges), the verifier's combos by (rows, width)."""
+    m, N = 2, 2 * n
+    k = lambda name, *extra: (name, curve, m, n) + extra
+    calls = {k(name): 1 for name in STAGE_NAMES[5:18]}
+    calls.update({k("stmt"): 2, k("abs_me"): 2, k("abs_const", b"hadamard:no-mid", 2): 2, k("flags", False): 1})
+    calls.update({("commit", curve, n, K): c for K, c in ((2, 2), (1, 1), (7, 1), (3, 1), (5, 1), (9, 1))})
+    calls.update({k("abs_pts", K, nch): 2 for K, nch in ((2, 1), (2, 2), (1, 0), (7, 1), (3, 1))})
+    calls.update({k("combo", 2, 4): 2, k("combo", 2, 1): 1, k("combo", 7, 8): 1, k("combo", 4, N): 1})
+    return calls
+
+
+def bench_phase(dev, g, data, proof, prove_verify, compared: dict, pv_ms: float, reps: int = 3) -> dict:
+    """9. The bench's knobs (`mental_poker_tpu_torch/bench.py`, eighth
+    slice) at full width, `msm_nc = 1`, the kernels' launch shapes recorded
+    throughout.
+
+    (a) shuffle52 at B = 128, (2, 26) with `stage_timing` on
+    (`bench_shuffle52`: its set-up, then `shuffle52_result`, `reps` timed
+    runs), its launch counts set to 0 just before and read just after (with
+    (a)'s proof below): every stage of `STAGE_NAMES` in the report, each
+    key's calls those of `stage_calls` in each of the 1 + `reps` runs, the
+    rows' steady ms for one prove+verify summed no more than the mean run;
+    then, timing still on, phase 3's batch proved again
+    (`prove_verify(data)`), the proof equal to phase 3's `proof` leaf for
+    leaf. (b) One timed run of (a)'s set-up with `profile_dir` set to a
+    temporary directory, the stage report still on: the report printed
+    first, its calls those of the warm and the timed run (the traced run
+    not among them); the Chrome trace written, the busy ms, idle share,
+    device ms by kernel and by stage and the top device operations printed;
+    `mont_mul`, `point_add` and `msm_lanes` among the traced device
+    operations; each stage's traced calls those of one prove+verify, their
+    device ms summed within the busy ms; the idle share also against
+    `pv_ms`, phase 3's median B = 128 prove+verify (timing off, untraced). (c) `bench.main()` with `MPTPU_BENCH_BATCH=1` and 2 reps, then with
+    `MPTPU_BENCH_SMOKE=1` and 1: each JSON line read back with that many
+    runs, each run's proofs verified (the bench raises otherwise). (d)
+    `parallel/scaling.py`'s `main` at world size 1 on NCCL, B = 128, (2,
+    26), 2 timed runs: the dp = 1 row, every flag true, dp 2, 4 and 8 named
+    as not run. Last, every launch at a shape `compared` does not hold
+    against its kernel's plain version."""
+    import io
+    import tempfile
+
+    import torch
+
+    from mental_poker_tpu_torch import bench, config
+    from mental_poker_tpu_torch.arguments import staged
+    from mental_poker_tpu_torch.ops import cuda as cuda_ops
+    from mental_poker_tpu_torch.parallel import scaling
+    from mental_poker_tpu_torch.parallel.sharding import leaves
+
+    t_start = time.perf_counter()
+    n = 26
+    runs = 1 + reps
+    out = {}
+    with kernel_shapes() as seen:
+        # (a) the stage report; launch counts around (a) alone
+        staged.STAGE_TIMES.clear()
+        err = io.StringIO()
+        torch.cuda.synchronize()
+        cuda_ops.reset_launches()
+        with config.override(stage_timing=True, fixed_window_bits=WINDOW), contextlib.redirect_stderr(err):
+            sb = bench.shuffle_setup(2, n, BATCH, 1234, b"bench", dev)  # `bench_shuffle52`'s set-up, kept for (b)
+            res = bench.shuffle52_result(sb, reps, dev)
+            report = staged.stage_report()
+            proof_t, checks_t = prove_verify(data)
+        launches = dict(cuda_ops.LAUNCHES)
+        for line in err.getvalue().splitlines():
+            log(f"  {line}")
+        log(f"bench shuffle52 B={BATCH} with stage timing: {res}; launches {launches}")
+        for k in STAGED_KERNELS:
+            require(launches[k] > 0, f"the bench's shuffle52 did not launch kernel {k}")
+        require(sorted({key[0] for key, *_ in report}) == sorted(STAGE_NAMES),
+                f"stage report names {sorted({key[0] for key, *_ in report})}")
+        want = {key: c * runs for key, c in stage_calls(g.cv.host.name, n).items()}
+        got = {key: calls for key, _, calls, _ in report}
+        require(got == want, f"stage calls differ from the flow's: {sorted(set(got.items()) ^ set(want.items()))}")
+        per_run_ms = sum(steady * calls / runs for _, steady, calls, _ in report)
+        mean_ms = sum(res["runs_s"]) / len(res["runs_s"]) * 1e3
+        require(per_run_ms <= mean_ms, f"the stages' steady ms {per_run_ms:.1f} exceed the mean run {mean_ms:.1f}")
+        require(all(bool(c.all()) for c in checks_t), "the verifier rejected phase 3's batch with stage timing on")
+        diff = [i for i, (a_, b_) in enumerate(zip(leaves(proof), leaves(proof_t))) if not torch.equal(a_, b_)]
+        require(not diff and len(leaves(proof)) == len(leaves(proof_t)),
+                f"the proof made with stage timing on differs from phase 3's at leaves {diff}")
+        log(f"bench stage report: {len(report)} keys, the {len(STAGE_NAMES)} stages, each key's calls the flow's "
+            f"x {runs} runs; the stages' steady {per_run_ms:.1f} ms of a {mean_ms:.1f} ms mean run; phase 3's batch "
+            f"proved with timing on equals its proof ({len(leaves(proof_t))} leaves); (a) at "
+            f"{time.perf_counter() - t_start:.1f} s")
+        out["stage_report_b128"] = [[list(map(str, key)), steady, calls, first] for key, steady, calls, first in report]
+        out.update(shuffle52_b128=res, stages_ms_per_run=per_run_ms)
+
+        # (b) one traced run of (a)'s set-up, the stage report still on
+        err = io.StringIO()
+        staged.STAGE_TIMES.clear()
+        with tempfile.TemporaryDirectory() as tmp, config.override(profile_dir=tmp, stage_timing=True), \
+                contextlib.redirect_stderr(err):
+            res_b = bench.shuffle52_result(sb, 1, dev)
+            path = os.path.join(tmp, "bench_trace.json")
+            require(os.path.isfile(path) and os.path.getsize(path) > 0, f"no trace written at {path}")
+            trace_bytes = os.path.getsize(path)
+        lines = err.getvalue().splitlines()
+        for line in lines:
+            log(f"  {line}")
+        field = lambda head: [json.loads(line[len(head):]) for line in lines if line.startswith(head)]
+        busy = [line for line in lines if line.startswith("# device busy ")]
+        ops = [line for line in lines if line.startswith("# device op ")]
+        by_kernel, by_stage = field("# kernel device ms "), field("# stage device ms [ms, calls] ")
+        require(len(busy) == 1 and ops and len(by_kernel) == 1 and len(by_stage) == 1,
+                "the traced run's summary is missing")
+        for k in STAGED_KERNELS:
+            require(by_kernel[0][k] > 0, f"kernel {k} is not among the traced device operations")
+        calls = {}
+        for key, c in stage_calls(g.cv.host.name, n).items():
+            calls[key[0]] = calls.get(key[0], 0) + c
+        require({k: v[1] for k, v in by_stage[0].items()} == calls, f"stage device calls {by_stage[0]}")
+        staged_ms = sum(v[0] for v in by_stage[0].values())
+        require(staged_ms <= by_kernel[0]["all"], f"the stages' device ms {staged_ms} exceed the busy ms")
+        report_calls = [int(line.split("ms/call  x")[1].split()[0]) for line in lines if "ms/call  x" in line]
+        first_trace = min(i for i, line in enumerate(lines) if line.startswith("# trace: "))
+        require(sum(report_calls) == 2 * sum(calls.values())
+                and all("ms/call  x" not in line for line in lines[first_trace:]),
+                f"the stage report counts the traced run or follows it: calls {sum(report_calls)}")
+        idle_p3 = 1 - by_kernel[0]["all"] / pv_ms
+        log(f"bench trace: {trace_bytes} bytes of Chrome trace; the stages' device ms {staged_ms:.3f} of "
+            f"{by_kernel[0]['all']:.3f} busy; idle {idle_p3:.4f} of phase 3's {pv_ms:.1f} ms median B={BATCH} "
+            f"prove+verify (timing off, untraced); {res_b}; (b) at {time.perf_counter() - t_start:.1f} s")
+        out.update(trace_bytes=trace_bytes, traced_kernel_device_ms=by_kernel[0], trace_summary=busy[0],
+                   stage_device_ms=by_stage[0], idle_share_of_phase3_median=idle_p3)
+
+        # (c) main() through the config: the latency mode and the smoke shape
+        for knob in ({"MPTPU_BENCH_BATCH": "1", "MPTPU_BENCH_REPS": "2"},
+                     {"MPTPU_BENCH_SMOKE": "1", "MPTPU_BENCH_REPS": "1"}):
+            buf = io.StringIO()
+            with environment(MPTPU_MSM_NC="1", **knob), contextlib.redirect_stdout(buf):
+                rc = bench.main()
+            line = json.loads(buf.getvalue().strip().splitlines()[-1])
+            require(rc == 0 and line["metric"] == "torch_shuffle52_prove_verify_pairs_per_s"
+                    and len(line["runs_s"]) == int(knob["MPTPU_BENCH_REPS"]), f"bench main() with {knob}: rc {rc}, {line}")
+            log(f"bench main() with {knob}: {line}; at {time.perf_counter() - t_start:.1f} s")
+            out["main_" + "_".join(f"{k}={v}" for k, v in knob.items())] = line
+
+        # (d) the scaling curve at world size 1 on NCCL
+        buf = io.StringIO()
+        with environment(MPTPU_SCALING_B=str(BATCH), MPTPU_SCALING_REPS="2"), contextlib.redirect_stdout(buf):
+            rc = scaling.main(["--m", "2", "--n", str(n)])
+        lines = [json.loads(line) for line in buf.getvalue().splitlines() if line.startswith("{")]
+        for line in lines:
+            log(f"scaling: {line}")
+        rows = [line for line in lines if "dp" in line]
+        not_run = [line["not_run_dp"] for line in lines if "not_run_dp" in line]
+        require(rc == 0 and [r["dp"] for r in rows] == [1] and rows[0]["total_B"] == BATCH
+                and not_run == [[2, 4, 8]] and lines[-1]["metric"] == "dp_scaling_overhead",
+                f"scaling curve: rc {rc}, lines {lines}")
+        out["scaling_dp1"] = rows[0]
+        log(f"bench: (d) at {time.perf_counter() - t_start:.1f} s")
+
+    new = check_new_shapes(dev, g, seen, compared, 1101, "bench")
+    log(f"bench: phase 9 took {time.perf_counter() - t_start:.1f} s")
+    return dict(out, launches=launches, new_shapes={k_: len(v) for k_, v in new.items()})
 
 if __name__ == "__main__":
     sys.exit(main())

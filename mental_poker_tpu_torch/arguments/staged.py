@@ -11,13 +11,21 @@ the flags (the transcript's rejection sampling excepted).
 
 Transcript byte schedules are the JAX package's, so the same statement,
 witness and randomness give the same proof, leaf for leaf.
+
+With `stage_timing` on (`MPTPU_STAGE_TIMING=1`), each stage method is timed
+into `STAGE_TIMES` under the JAX package's program keys, and
+`stage_report()` reads them as the JAX package's does.
 """
 
 from __future__ import annotations
 
+import functools
+import time
+
 import numpy as np
 import torch
 
+from .. import config
 from ..crypto import hash_dev
 from ..crypto import serialize_dev as sd
 from ..crypto import transcript_dev as dt
@@ -51,6 +59,59 @@ _NO_MID = b"hadamard:no-mid"
 # When True, verify() returns (ShuffleChecks, dict of the raw sub-check
 # flags) so a failing flag can be localised.
 DEBUG_FLAGS = False
+
+# Per-stage wall-clock accounting, on with `stage_timing`
+# (MPTPU_STAGE_TIMING=1): key -> [total_s, calls, first_call_s]. The first
+# call includes the kernel libraries' load; the steady cost is
+# (total - first) / (calls - 1).
+STAGE_TIMES: dict = {}
+
+
+def stage_report() -> list:
+    """[(key, steady_ms_per_call, calls, first_s)] sorted by total steady time."""
+    rows = []
+    for k, (tot, n, first) in STAGE_TIMES.items():
+        steady = (tot - first) / (n - 1) if n > 1 else first
+        rows.append((k, steady * 1e3, n, first))
+    rows.sort(key=lambda r: -(r[1] * max(r[2] - 1, 1)))
+    return rows
+
+
+def _timed(key, method, self, args):
+    """`method(self, *args)` timed with the host clock to a
+    `torch.cuda.synchronize()` once CUDA is in use (the role of
+    `jax.block_until_ready`), recorded in `STAGE_TIMES` under key. The call
+    is a `record_function` range "stage <name>", so that a profiler trace
+    splits the device time by stage."""
+    t0 = time.perf_counter()
+    with torch.profiler.record_function(f"stage {key[0]}"):
+        out = method(self, *args)
+    if torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    rec = STAGE_TIMES.setdefault(key, [0.0, 0, dt])
+    rec[0] += dt
+    rec[1] += 1
+    return out
+
+
+def _stage(key=None):
+    """A stage method, timed by `_timed` when `stage_timing` is on (read at
+    each call); off, the method runs alone. `key(self, *args)` gives the
+    JAX package's program key of the call (default `self._k(name)`)."""
+
+    def wrap(method):
+        name = method.__name__
+
+        @functools.wraps(method)
+        def stage(self, *args):
+            if not config.get_config().stage_timing:
+                return method(self, *args)
+            return _timed(self._k(name) if key is None else key(self, *args), method, self, args)
+
+        return stage
+
+    return wrap
 
 
 def _tree_root_dev(leaf_bytes: torch.Tensor) -> torch.Tensor:
@@ -120,7 +181,12 @@ class StagedShuffle:
         self.N = m * n
         self.fr = cv.fr
 
+    def _k(self, name, *extra):
+        """The JAX package's program key of a stage (`STAGE_TIMES`)."""
+        return (name, self.cv.name, self.m, self.n) + extra
+
     # ------------------------------------------------------------ stages
+    @_stage()
     def stmt(self, keys, din: Ciphertexts, dout: Ciphertexts):
         cv, m, n = self.cv, self.m, self.n
         B = din.c0.x.shape[0]
@@ -139,9 +205,11 @@ class StagedShuffle:
         )
         return dt.absorb(st, blob)
 
+    @_stage(lambda s, keys, vecs_c, rs_c: ("commit", s.cv.name, s.n, vecs_c.shape[-3]))
     def commit(self, keys, vecs_c, rs_c) -> AffP:
         return to_aff(self.cv, _commit(self.cv, keys, vecs_c, rs_c))
 
+    @_stage(lambda s, st, aff, nch: s._k("abs_pts", aff.x.shape[1], nch))
     def abs_pts(self, st, aff: AffP, nch: int):
         st = dt.absorb(st, aff_blob(self.cv, aff))
         chs = []
@@ -150,6 +218,7 @@ class StagedShuffle:
             chs.append(c)
         return (st,) + tuple(chs)
 
+    @_stage(lambda s, st, data, nch: s._k("abs_const", data, nch))
     def abs_const(self, st, data: bytes, nch: int):
         st = dt.absorb(st, sd.const_bytes(data, st.widx.shape, st.widx.device))
         chs = []
@@ -158,22 +227,26 @@ class StagedShuffle:
             chs.append(c)
         return (st,) + tuple(chs)
 
+    @_stage()
     def abs_me(self, st, pts_aff: AffP, e0: AffP, e1: AffP):
         eb = torch.cat([aff_bytes(self.cv, e0), aff_bytes(self.cv, e1)], dim=-1)  # [B, 2m, 2pb]
         st = dt.absorb(st, sd.concat_bytes(aff_blob(self.cv, pts_aff), eb.flatten(-2)))
         return dt.sample_field(st, self.fr)
 
+    @_stage()
     def make_a(self, pi):
         B = pi.shape[0]
         a = torch.zeros((B, self.N, self.fr.L), dtype=torch.int32, device=pi.device)
         a[..., 0] = (pi + 1).to(torch.int32)
         return a.reshape(B, self.m, self.n, self.fr.L)
 
+    @_stage()
     def make_b(self, x_m, pi):
         fr = self.fr
         b_m = _gather_rows(fr.powers(x_m, self.N), pi)
         return fr.from_mont(b_m).reshape(pi.shape[0], self.m, self.n, fr.L)
 
+    @_stage()
     def prod_prep(self, x_m, y_m, z_m, pi, r_c, s_c, prod_s_c):
         m, n, N, fr = self.m, self.n, self.N, self.fr
         B = pi.shape[0]
@@ -195,12 +268,14 @@ class StagedShuffle:
         prod_s_m = fr.to_mont(prod_s_c)
         return dz_rows, t_m, b_vec_m, v_m, cpb_vec_c, prod_s_m
 
+    @_stage()
     def had_mids(self, dz_rows_m, t_m, prod_s_m, had_sB_c):
         fr = self.fr
         B_m = fr.prefix_prod(dz_rows_m, axis=1)  # partial products B_i
         s_B_m = torch.cat([t_m[:, :1], fr.to_mont(had_sB_c), prod_s_m[:, None]], dim=1)
         return B_m, s_B_m, fr.from_mont(B_m[:, 1:-1]), fr.from_mont(s_B_m[:, 1:-1])
 
+    @_stage()
     def had_prep(self, hx_m, B_m, s_B_m, dz_rows_m, t_m):
         m, n, fr = self.m, self.n, self.fr
         B = hx_m.shape[0]
@@ -215,6 +290,7 @@ class StagedShuffle:
         S_rows = torch.cat([t_m[:, 1:], fr.zeros((B, 1), hx_m.device)], dim=1)
         return A_rows, R_rows, B_rows, S_rows
 
+    @_stage()
     def zero_prep(self, hy_m, A_rows, R_rows, B_rows, S_rows, a0_c, r0_c, bm1_c, sm1_c, t_c):
         m, n, fr = self.m, self.n, self.fr
         a0 = fr.to_mont(a0_c)
@@ -254,6 +330,7 @@ class StagedShuffle:
         rs_c = torch.cat([fr.from_mont(r0)[:, None], fr.from_mont(sm1)[:, None], fr.from_mont(t)], dim=1)
         return vecs_c, rs_c, A, Bv, R, S, t
 
+    @_stage()
     def zero_open(self, zx_m, A, Bv, R, S, t):
         m, fr = self.m, self.fr
         xi = fr.powers(zx_m, 2 * m + 2, start=0)
@@ -268,6 +345,7 @@ class StagedShuffle:
         )
         return tuple(fr.from_mont(v) for v in opens)
 
+    @_stage()
     def svp_prep(self, b_vec_m, d_c, rd_c, delta_c, s1_c, sx_c):
         n, fr = self.n, self.fr
         B = b_vec_m.shape[0]
@@ -289,6 +367,7 @@ class StagedShuffle:
         rs_c = torch.stack([rd_c, s1_c, sx_c], dim=1)
         return vecs_c, rs_c, bpart, d, delta
 
+    @_stage()
     def svp_open(self, svx_m, b_vec_m, prod_s_m, bpart, d, delta, rd_c, s1_c, sx_c):
         fr = self.fr
         x = svx_m[:, None, :]
@@ -298,6 +377,7 @@ class StagedShuffle:
         s_t = fr.add(fr.mont_mul(svx_m, fr.to_mont(sx_c)), fr.to_mont(s1_c))
         return tuple(fr.from_mont(v) for v in (a_t, r_t, b_t, s_t))
 
+    @_stage()
     def me_prep(self, keys, dout, x_m, pi, s_c, rho_c, a0_c, r0_c, b_c, sk_c, tau_c):
         cv, m, n, N, fr = self.cv, self.m, self.n, self.N, self.fr
         B = pi.shape[0]
@@ -350,6 +430,7 @@ class StagedShuffle:
         rs_c = torch.cat([r0_c[:, None], fr.from_mont(s_k)], dim=1)
         return e0a, e1a, vecs_c, rs_c, rows, r_full_m, b_k, s_k, tau_k
 
+    @_stage()
     def me_open(self, mex_m, rows, r_full_m, b_k, s_k, tau_k):
         m, fr = self.m, self.fr
         xj = fr.powers(mex_m, 2 * m, start=0)  # [B, 2m, L]
@@ -456,6 +537,7 @@ class StagedShuffle:
         )
 
     # ------------------------------------------------------------ verify
+    @_stage()
     def ver_prep(self, x, y, z, hy, za, zr, zb, zs, zt, sa, sr, sb, ss, svx, ma, mr, mb, ms):
         n, N, fr = self.n, self.N, self.fr
         B = x.shape[0]
@@ -492,6 +574,7 @@ class StagedShuffle:
         svp_flag = fr.eq(b_t[:, 0], a_t[:, 0]) & fr.eq(b_t[:, -1], fr.mont_mul(svx, v_m))
         return vecs_c, rs_c, svp_flag, v_m
 
+    @_stage()
     def coeffs(self, x, y, hx, zx, svx, mex, ma):
         m, fr = self.m, self.fr
         B = x.shape[0]
@@ -507,9 +590,9 @@ class StagedShuffle:
             mescal=fr.from_mont(mescal.reshape(B, -1, fr.L)),
         )
 
-    def combo(self, rows) -> PointP:
+    def _combo_rows(self, rows) -> PointP:
         """Rows of (points [B, k] PointP, coefficients [B, k, L]) padded to
-        the widest row's power-of-two width -> one MSM -> PointP [B, Q]."""
+        the widest row's power-of-two width -> one `combo` -> PointP [B, Q]."""
         width = max(r[1].shape[1] for r in rows)
         P = 1 if width <= 1 else 1 << (width - 1).bit_length()
         pts, cs = [], []
@@ -520,8 +603,15 @@ class StagedShuffle:
                 co = torch.cat([co, co.new_zeros((co.shape[0], P - k, co.shape[-1]))], 1)
             pts.append(pt)
             cs.append(co)
-        return msm_mod.msm(self.cv, stack_points(pts, dim=1), torch.stack(cs, dim=1))
+        return self.combo(stack_points(pts, dim=1), torch.stack(cs, dim=1))
 
+    @_stage(lambda s, pts, cs: s._k("combo", cs.shape[1], cs.shape[2]))
+    def combo(self, pts: PointP, cs) -> PointP:
+        """Q per-statement MSMs of P points: points [B, Q, P], coefficients
+        [B, Q, P, L] -> PointP [B, Q]."""
+        return msm_mod.msm(self.cv, pts, cs)
+
+    @_stage(lambda s, *args: s._k("flags", DEBUG_FLAGS))
     def flags(self, keys, lhs_aff, rhs_pts, cipher_pts, mb_c, mtau_c, czm1_aff, cbm_aff, em0_aff, em1_aff, svp_flag):
         cv = self.cv
         lhs = aff_to_proj(cv, lhs_aff)
@@ -601,18 +691,18 @@ class StagedShuffle:
         row = lambda pts, cs: (stack_points(pts, dim=1), torch.stack(cs, dim=1))
 
         # layer 1: product-argument statement commitments c_d[k] = y c_a[k] + c_b[k] + c_mz
-        l1 = self.combo([row([at(ca_p, k), at(cb_p, k), cmz_p], [y_c, one_c, one_c]) for k in range(m)])
+        l1 = self._combo_rows([row([at(ca_p, k), at(cb_p, k), cmz_p], [y_c, one_c, one_c]) for k in range(m)])
 
         # layer 2: Hadamard-reduced commitments c_D_i = hx^i c_B[i-1], c_Dsum = sum hx^i c_B[i]
         cB = [at(l1, 0)] + [at(mid_p, i) for i in range(m - 2)] + [cpb_p]
         l2_rows = [row([cB[i - 1]], [hxi_c[:, i]]) for i in range(1, m)]
         l2_rows.append(row([cB[i] for i in range(1, m)], [hxi_c[:, i] for i in range(1, m)]))
-        l2 = self.combo(l2_rows)
+        l2 = self._combo_rows(l2_rows)
 
         # layer 3: the right-hand side of every lhs == rhs check
         c_a_z = [at(l2, i) for i in range(m)]
         c_b_z = [at(l1, i) for i in range(1, m)] + [cm1_p]
-        rhs = self.combo([
+        rhs = self._combo_rows([
             row([ca0z_p] + c_a_z, [zxi_c[:, i] for i in range(m + 1)]),
             row(c_b_z + [cbm1_p], [zxi_c[:, m + 1 - j] for j in range(1, m + 2)]),
             (cd_p, zxi_c[:, : 2 * m + 1]),
@@ -626,12 +716,11 @@ class StagedShuffle:
         # the 2m-wide blind rows (lhs_e)
         xpow_c = fr.from_mont(fr.powers(x, N))
         mescal = co["mescal"]  # [B, m*n, L]
-        deckc = msm_mod.msm(
-            cv,
+        deckc = self.combo(
             stack_points([deck_in.c0, deck_in.c1, deck_out.c0, deck_out.c1], dim=1),
             torch.stack([xpow_c, xpow_c, mescal, mescal], dim=1),
         )  # [B, 4]: T0, T1, rP0, rP1
-        ec = self.combo([(e0_p, xj_c[:, : 2 * m]), (e1_p, xj_c[:, : 2 * m])])
+        ec = self._combo_rows([(e0_p, xj_c[:, : 2 * m]), (e1_p, xj_c[:, : 2 * m])])
         cipher = cat_points(
             [map_point(lambda q: q[:, :2], deckc), ec, map_point(lambda q: q[:, 2:], deckc)], dim=1
         )  # T0, T1, lE0, lE1, rP0, rP1

@@ -19,13 +19,33 @@ Modes (`MPTPU_BENCH_MODE`), with `bench.py`'s shapes, seeds and draw order:
   player's reveal tokens with proofs, each proof batch verified on the card
   (`crypto/sigma_device.py`), and the cards unmasked and compared.
 
-Each mode runs once to warm up, then `REPS` (3) timed runs, each
-ending in `torch.cuda.synchronize()`; every check is asserted on every run.
-The JSON line holds `metric`, `value` (units over the mean run), `unit`,
+Each mode runs once to warm up, then `MPTPU_BENCH_REPS` (3) timed runs,
+each ending in `torch.cuda.synchronize()`; every check is asserted on every
+run. The JSON line holds `metric`, `value` (units over the mean run), `unit`,
 `vs_baseline` (against `bench.py`'s analytic estimates of the Rust reference
 on one CPU core: 5.0 shuffle pairs/s, 170,000 MSM points/s, 0.3 deck1024
-pairs/s, 1.6 games/s), `runs_s` (every timed run) and `device` (the card's
-name and power limit from nvidia-smi).
+pairs/s, 1.6 games/s), `runs_s` (every timed run), `stage_timing` (whether
+the runs synchronized after every stage) and `device` (the card's name and
+power limit from nvidia-smi).
+
+Knobs, as `bench.py` reads them (`config.py`):
+
+- `MPTPU_BENCH_BATCH` (128): the decks of a shuffle52 batch; 1 is the
+  single-proof latency mode.
+- `MPTPU_BENCH_SMOKE=1`: shuffle52 at (m, n) = (2, 4).
+- `MPTPU_STAGE_TIMING=1`: shuffle52 prints to stderr the mean prove+verify
+  and one line a stage (`arguments/staged.py::stage_report`, steady ms a
+  call, calls, the first call's seconds), in `bench.py`'s format, over the
+  warm and the timed runs. Each stage then ends in a synchronize, which
+  the timed runs pay for: take a rate from a run with stage timing off and
+  the stage report from a run of its own.
+- `MPTPU_PROFILE=DIR`: after the timed runs of any mode (and the stage
+  report), one more run is traced by `torch.profiler` (`profiling.trace`):
+  a Chrome trace in DIR, and on stderr the run's device-busy ms, the idle
+  share of the mean timed run (1 - busy / mean run) and of the traced run
+  (which the profiler slows), and the top device operations; with
+  `MPTPU_STAGE_TIMING=1` too, each stage's device ms. The traced run enters
+  neither the timed runs nor the stage report.
 
 Fixed-base tables take 8-bit windows unless `MPTPU_FIXED_WINDOW` says
 otherwise (as `bench.py` sets it). Each mode is a function of `device`
@@ -45,8 +65,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from . import config
-from .arguments import device_api
+from . import config, profiling
+from .arguments import device_api, staged
 from .crypto import elgamal, sigma_device as sdev, transcript_dev as dt
 from .crypto.elgamal import Ciphertexts
 from .crypto.transcript import MASKING_RNG_SEED, REMASKING_RNG_SEED, REVEAL_RNG_SEED
@@ -62,8 +82,9 @@ ARKWORKS_CPU_DECK1024_PAIRS_PER_S = 0.3
 ARKWORKS_CPU_MULTIGAME_GAMES_PER_S = 1.6
 
 BENCH_FIXED_WINDOW = "8"  # bench.py:38
-REPS = 3  # timed runs after the warm one
-BATCH = 128  # decks of a shuffle52 batch
+REPS = config.RuntimeConfig.bench_reps  # timed runs after the warm one
+BATCH = config.RuntimeConfig.bench_batch  # decks of a shuffle52 batch
+SMOKE_SHAPE = (2, 4)  # (m, n) of shuffle52 under MPTPU_BENCH_SMOKE, bench.py:61
 
 
 def _sync(device) -> None:
@@ -82,8 +103,11 @@ def device_name(device) -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def timed_runs(one, reps: int, device) -> list:
-    """One warm run of `one()`, then `reps` timed runs; seconds of each."""
+def timed_runs(one, reps: int, device, report=None) -> list:
+    """One warm run of `one()`, then `reps` timed runs; seconds of each.
+    `report(runs)` is called after them. With `profile_dir` set, one more
+    run after that is traced (`profiling.trace`) and its summary printed to
+    stderr."""
     one()
     _sync(device)
     runs = []
@@ -92,7 +116,31 @@ def timed_runs(one, reps: int, device) -> list:
         one()
         _sync(device)
         runs.append(time.perf_counter() - t0)
+    if report is not None:
+        report(runs)
+    prof_dir = config.get_config().profile_dir
+    if prof_dir:
+        print_trace(profiling.trace(one, prof_dir, "bench_trace", device), runs)
     return runs
+
+
+def print_trace(tr: dict, runs: list) -> None:
+    """A traced run's summary on stderr: the trace file, and on a card the
+    device-busy ms, the idle share of the mean of the timed `runs` and of
+    the traced run, the port's kernels' device ms, each stage's device ms
+    (with `stage_timing` on) and the top device operations."""
+    print(f"# trace: {tr['trace']} ({tr['wall_s'] * 1e3:.1f} ms run)", file=sys.stderr)
+    if "device_busy_ms" not in tr:
+        return
+    mean_s = sum(runs) / len(runs)
+    print(f"# device busy {tr['device_busy_ms']:.3f} ms in {tr['device_launches']} launches; "
+          f"idle share {1 - tr['device_busy_ms'] / 1e3 / mean_s:.4f} of the {mean_s * 1e3:.1f} ms mean timed run, "
+          f"{tr['idle_share_of_traced']:.4f} of the traced run", file=sys.stderr)
+    print(f"# kernel device ms {json.dumps(tr['kernel_device_ms'])}", file=sys.stderr)
+    if tr["stage_device_ms"]:
+        print(f"# stage device ms [ms, calls] {json.dumps(tr['stage_device_ms'])}", file=sys.stderr)
+    for name, ms, count in tr["top_ops"]:
+        print(f"# device op {ms:10.3f} ms  x{count:<6} {name}", file=sys.stderr)
 
 
 def result(metric: str, units: float, runs: list, unit: str, baseline: float, digits: int, device) -> dict:
@@ -104,6 +152,7 @@ def result(metric: str, units: float, runs: list, unit: str, baseline: float, di
         "unit": unit,
         "vs_baseline": round(rate / baseline, 4),
         "runs_s": runs,
+        "stage_timing": config.get_config().stage_timing,
         "device": device_name(device),
     }
 
@@ -168,10 +217,30 @@ def shuffle_setup(m: int, n: int, batch: int, seed: int, info: bytes, device="cu
 
 def bench_shuffle52(reps: int = REPS, batch: int = BATCH, m: int = 2, n: int = 26, device="cuda") -> dict:
     """`bench.py::bench_shuffle52`: prove+verify pairs per second."""
-    sb = shuffle_setup(m, n, batch, 1234, b"bench", device)
-    runs = timed_runs(sb.one, reps, device)
+    return shuffle52_result(shuffle_setup(m, n, batch, 1234, b"bench", device), reps, device)
+
+
+def shuffle52_result(sb: ShuffleBench, reps: int, device) -> dict:
+    """The timed runs of shuffle52 on a set-up batch, as `bench_shuffle52`
+    reports them. With `stage_timing` on, the mean run and the stage report
+    go to stderr before any traced run."""
+    batch = sb.pi.shape[0]
+
+    def report(runs):
+        print_stage_report(sum(runs) / len(runs), batch)
+
+    runs = timed_runs(sb.one, reps, device, report if config.get_config().stage_timing else None)
     return result("torch_shuffle52_prove_verify_pairs_per_s", batch, runs, "proofs/s/chip",
                   ARKWORKS_CPU_SHUFFLE52_PAIRS_PER_S, 4, device)
+
+
+def print_stage_report(run_s: float, batch: int) -> None:
+    """`bench.py:118-126`'s report: the mean prove+verify, then each stage's
+    steady ms a call, its calls and its first call's seconds."""
+    print(f"# prove+verify: {run_s * 1e3:.1f} ms per {batch}-deck batch", file=sys.stderr)
+    for key, steady_ms, calls, first in staged.stage_report():
+        print(f"# stage {key[0]:<10} {str(key[4:]):<12} {steady_ms:9.2f} ms/call  x{calls}  (first {first:.2f} s)",
+              file=sys.stderr)
 
 
 def bench_deck1024(reps: int = REPS, m: int = 16, n: int = 64, device="cuda") -> dict:
@@ -316,17 +385,19 @@ def bench_multigame(reps: int = REPS, G: int = 64, P: int = 8, m: int = 2, n: in
                   ARKWORKS_CPU_MULTIGAME_GAMES_PER_S, 3, device)
 
 
-def run(mode: str, device="cuda") -> dict:
-    """The mode's result at its full size, as `main` prints it."""
+def run(mode: str, reps: int = REPS, batch: int = BATCH, smoke: bool = False, device="cuda") -> dict:
+    """The mode's result at its full size (shuffle52 at `batch` decks, at
+    (2, 4) when `smoke`), as `main` prints it."""
     if mode == "msm":
-        return bench_msm(device=device)
+        return bench_msm(reps, device=device)
     if mode == "deck1024":
-        return bench_deck1024(device=device)
+        return bench_deck1024(reps, device=device)
     if mode == "multigame":
-        return bench_multigame(device=device)
+        return bench_multigame(reps, device=device)
     if mode != "shuffle52":
         raise ValueError(f"unknown MPTPU_BENCH_MODE {mode!r}: shuffle52, msm, deck1024 or multigame")
-    return bench_shuffle52(device=device)
+    m, n = SMOKE_SHAPE if smoke else (2, 26)
+    return bench_shuffle52(reps, batch, m, n, device=device)
 
 
 def main() -> int:
@@ -335,7 +406,8 @@ def main() -> int:
         return 2
     os.environ.setdefault("MPTPU_FIXED_WINDOW", BENCH_FIXED_WINDOW)
     config.set_config(None)  # read the environment with the bench's default window
-    print(json.dumps(run(config.get_config().bench_mode)))
+    cfg = config.get_config()
+    print(json.dumps(run(cfg.bench_mode, cfg.bench_reps, cfg.bench_batch, cfg.bench_smoke)))
     return 0
 
 

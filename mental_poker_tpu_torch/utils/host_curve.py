@@ -16,8 +16,14 @@ from __future__ import annotations
 import dataclasses
 
 
-def tonelli_shanks(n: int, p: int) -> int | None:
-    """Square root of n mod p (p odd prime), or None if n is not a QR."""
+def sqrt_mod(n: int, p: int) -> int | None:
+    """A square root of n mod p (p odd prime), or None if n is not a QR.
+
+    Cipolla's algorithm: (a + w)^((p+1)/2) in F_p[w], w^2 = a^2 - n a
+    non-residue, in about log2 p steps. Tonelli-Shanks takes about s^2 / 2
+    squarings where 2^s divides p - 1, and the Stark field has s = 192, which
+    made its random points (`rand_point`) five times slower. Which of the two
+    roots comes back does not matter: `decompress` picks by size."""
     n %= p
     if n == 0:
         return 0
@@ -25,26 +31,18 @@ def tonelli_shanks(n: int, p: int) -> int | None:
         return None
     if p % 4 == 3:
         return pow(n, (p + 1) // 4, p)
-    # general case
-    q, s = p - 1, 0
-    while q % 2 == 0:
-        q //= 2
-        s += 1
-    z = 2
-    while pow(z, (p - 1) // 2, p) != p - 1:
-        z += 1
-    m, c, t, r = s, pow(z, q, p), pow(n, q, p), pow(n, (q + 1) // 2, p)
-    while t != 1:
-        t2i, i = t, 0
-        for i in range(1, m):
-            t2i = t2i * t2i % p
-            if t2i == 1:
-                break
-        b = pow(c, 1 << (m - i - 1), p)
-        m, c = i, b * b % p
-        t = t * c % p
-        r = r * b % p
-    return r
+    a = 1
+    while pow((a * a - n) % p, (p - 1) // 2, p) != p - 1:
+        a += 1
+    w2 = (a * a - n) % p
+    x0, x1, r0, r1 = a, 1, 1, 0  # x = a + w, r = 1
+    e = (p + 1) // 2
+    while e:
+        if e & 1:
+            r0, r1 = (r0 * x0 + r1 * x1 * w2) % p, (r0 * x1 + r1 * x0) % p
+        x0, x1 = (x0 * x0 + x1 * x1 * w2) % p, 2 * x0 * x1 % p
+        e >>= 1
+    return r0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -119,7 +117,7 @@ class HostCurve:
         Returns None if x is not on the curve.
         """
         rhs = (x * x * x + self.a * x + self.b) % self.p
-        y = tonelli_shanks(rhs, self.p)
+        y = sqrt_mod(rhs, self.p)
         if y is None:
             return None
         neg_y = (-y) % self.p

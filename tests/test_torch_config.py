@@ -1,7 +1,8 @@
 """The port's runtime config (`mental_poker_tpu_torch/config.py`), as
 `tests/test_config.py` holds the JAX package's: environment backing under
 the same `MPTPU_*` names, `override`, a frozen config, and the knobs'
-consumers reading the config."""
+consumers reading the config; the eighth slice's knobs, `_env_bool` and a
+malformed number against the JAX package's config."""
 
 import dataclasses
 
@@ -68,3 +69,52 @@ def test_knob_consumers_route_through_config(monkeypatch):
     with override(msm_nc=4):
         cuda_msm.msm_lanes(None, (None,) * 3, None)
     assert seen == [4]
+
+
+# The five knobs of the eighth slice: (field, variable, a value to set, the
+# parsed value).
+NEW_KNOBS = [
+    ("stage_timing", "MPTPU_STAGE_TIMING", "1", True),
+    ("profile_dir", "MPTPU_PROFILE", "/tmp/trace", "/tmp/trace"),
+    ("bench_reps", "MPTPU_BENCH_REPS", "5", 5),
+    ("bench_batch", "MPTPU_BENCH_BATCH", "1", 1),
+    ("bench_smoke", "MPTPU_BENCH_SMOKE", "true", True),
+]
+
+
+@pytest.mark.parametrize("field,var,value,parsed", NEW_KNOBS, ids=[k[0] for k in NEW_KNOBS])
+def test_new_knob_env_and_default_match_jax(monkeypatch, field, var, value, parsed):
+    monkeypatch.delenv(var, raising=False)
+    assert getattr(RuntimeConfig.from_env(), field) == getattr(jconfig.RuntimeConfig.from_env(), field)
+    monkeypatch.setenv(var, value)
+    assert getattr(RuntimeConfig.from_env(), field) == getattr(jconfig.RuntimeConfig.from_env(), field) == parsed
+
+
+# `_env_bool` cases: (the variable's value, None for unset; the default).
+ENV_BOOL_CASES = [(v, None) for v in ("0", "false", "False", "1", "true", "yes", "")] + [
+    (None, d) for d in (True, False, None)
+]
+
+
+@pytest.mark.parametrize("value,default", ENV_BOOL_CASES,
+                         ids=[v if v is not None else f"unset-{d}" for v, d in ENV_BOOL_CASES])
+def test_env_bool_spellings_match_jax(monkeypatch, value, default):
+    """The false spellings, anything else true, and unset or empty giving
+    the default, as the JAX package's `_env_bool` reads them."""
+    if value is None:
+        monkeypatch.delenv("MPTPU_STAGE_TIMING", raising=False)
+    else:
+        monkeypatch.setenv("MPTPU_STAGE_TIMING", value)
+    got = config._env_bool("MPTPU_STAGE_TIMING", default)
+    assert got is jconfig._env_bool("MPTPU_STAGE_TIMING", default)
+    assert got is (default if value in (None, "") else value not in ("0", "false", "False"))
+    assert RuntimeConfig.from_env().stage_timing is (value not in (None, "", "0", "false", "False"))
+
+
+@pytest.mark.parametrize("var", ["MPTPU_BENCH_REPS", "MPTPU_BENCH_BATCH", "MPTPU_FIXED_WINDOW"])
+def test_bad_int_knob_raises_like_jax(monkeypatch, var):
+    monkeypatch.setenv(var, "three")
+    with pytest.raises(ValueError):
+        jconfig.RuntimeConfig.from_env()
+    with pytest.raises(ValueError):
+        RuntimeConfig.from_env()

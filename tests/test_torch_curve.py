@@ -224,3 +224,49 @@ def test_a_case_keeps_the_general_triple(name):
         want = _rcb_add_host(tc, P, Q)
         assert _rcb_add_host_case(tc, P, Q, case) == want
         assert _rcb_add_host_case(tc, P, Q, cuda_curve.A_GENERAL) == want
+
+
+@pytest.mark.parametrize("name", CURVES)
+def test_host_sqrt_and_rand_point_match_jax(name):
+    """The port's host square root (Cipolla) against the JAX package's
+    Tonelli-Shanks, up to sign, over each curve's base and scalar fields;
+    and the random points that the port's and the JAX package's host curves
+    draw from one seed (`decompress` picks the root by size)."""
+    from mental_poker_tpu.utils.host_curve import tonelli_shanks
+    from mental_poker_tpu_torch.utils.host_curve import sqrt_mod
+
+    jc, tc = _pair(name)
+    for p in (jc.host.p, jc.host.order):
+        rng = random.Random(p % 997)
+        for v in [0, 1, 2, 3, p - 1] + [rng.randrange(p) for _ in range(60)]:
+            want, got = tonelli_shanks(v, p), sqrt_mod(v, p)
+            assert (got is None) == (want is None) and (got is None or got in (want, (p - want) % p)), v
+    rng_t, rng_j = random.Random(9), random.Random(9)
+    assert [tc.host.rand_point(rng_t) for _ in range(4)] == [jc.host.rand_point(rng_j) for _ in range(4)]
+
+
+@pytest.mark.parametrize("p", [7, 103, 13, 97, 257, 65537])
+def test_sqrt_mod_every_residue_of_a_small_prime(p):
+    """`sqrt_mod` against the squares mod p, for every n < p: a root of n
+    when n is a square, else None (p = 3 mod 4 takes the power shortcut,
+    p = 1 mod 4 Cipolla's loop, 65537 with 2^16 dividing p - 1)."""
+    from mental_poker_tpu_torch.utils.host_curve import sqrt_mod
+
+    squares = {x * x % p for x in range(p)}
+    for n in range(p):
+        r = sqrt_mod(n, p)
+        assert (r is not None) == (n in squares), n
+        assert r is None or r * r % p == n, n
+
+
+@pytest.mark.parametrize("name", CURVES)
+def test_decompress_matches_jax_host(name):
+    """The port's host `decompress` (through `sqrt_mod`) gives the JAX
+    package's points for both sign flags, and None off the curve."""
+    jc, tc = _pair(name)
+    rng = random.Random(17)
+    xs = [tc.host.rand_point(rng)[0] for _ in range(6)] + [rng.randrange(tc.host.p) for _ in range(10)]
+    for x in xs:
+        for neg in (False, True):
+            assert tc.host.decompress(x, neg) == jc.host.decompress(x, neg), (x, neg)
+    assert any(tc.host.decompress(x, False) is None for x in xs[6:])

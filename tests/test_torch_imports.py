@@ -33,4 +33,4 @@ def test_package_files_found():
     names = {p.name for p in FILES}
     assert {"staged.py", "msm.py", "field.py", "dl_cards.py", "round.py", "chip_smoke.py",
             "config.py", "parameter_selection.py", "sigma_device.py", "bench.py",
-            "sharding.py", "distributed.py", "dryrun.py"} <= names
+            "sharding.py", "distributed.py", "dryrun.py", "scaling.py", "profiling.py"} <= names

@@ -5,8 +5,12 @@ the CPU (the wrapper's plain version).
 Scalars come from seeded `random.Random` draws plus the edges 0, 1 and
 q-1; identity points are mixed in. Tolerance: exact equality of affine
 values (the engines add in different orders, so projective triples differ).
+The JAX gather engine's sums are pinned as the SHA-256 of their affine
+values (`JAX_MSM_SHA256`); the `slow` test recomputes them (its trace takes
+most of a minute on a cold compile cache).
 """
 
+import hashlib
 import random
 
 import numpy as np
@@ -53,18 +57,48 @@ def _host_msm(h, pts, ks):
     return out
 
 
-@pytest.mark.parametrize("S,N", [(3, 5), (2, 21)])
-def test_msm_matches_jax_and_host(curves, S, N):
-    """(2, 21) takes the wide-split mapping (2 parts of 11, one padded)."""
-    jc, tc = curves
+# SHA-256 of the JAX `msm(..., engine="gather")` sums of `_statement(S, N)`
+# as affine points (`_points_sha256`), by (S, N).
+JAX_MSM_SHA256 = {
+    (3, 5): "5ad6adc96f028cca2943dd64cd055e72c9a91e9c6401b4369db604155292584e",
+    (2, 21): "76204e67eed0ad7b1a36796edd8e3e2c425d005e826a948d70b357e74c8ec5be",
+}
+
+
+def _points_sha256(points) -> str:
+    h = hashlib.sha256()
+    for x, y, inf in points:
+        h.update((x or 0).to_bytes(32, "little") + (y or 0).to_bytes(32, "little") + bytes([inf]))
+    return h.hexdigest()
+
+
+def _inputs(jc, S, N):
+    """`_statement(S, N)` as JAX points [S, N], their port copy and the limbs."""
     pts, ks = _statement(jc, S, N, S * 100 + N)
     flat = [p for row in pts for p in row]
     JP = JPointP(*(c.reshape(S, N, -1) for c in jc.from_host_points(flat)))
     TP = PointP(*(to_torch(np.asarray(c)) for c in JP))
-    k = ints_to_limbs(ks, jc.fr.L)
+    return pts, ks, JP, TP, ints_to_limbs(ks, jc.fr.L)
+
+
+@pytest.mark.parametrize("S,N", [(3, 5), (2, 21)])
+def test_msm_matches_jax_and_host(curves, S, N):
+    """(2, 21) takes the wide-split mapping (2 parts of 11, one padded)."""
+    jc, tc = curves
+    pts, ks, _, TP, k = _inputs(jc, S, N)
     got = tc.to_host_points(tmsm.msm(tc, TP, to_torch(k)))
     assert got == _host_msm(jc.host, pts, ks)
-    assert got == jc.to_host_points(jmsm.msm(jc, JP, k, engine="gather"))
+    assert _points_sha256(got) == JAX_MSM_SHA256[(S, N)]
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("S,N", [(3, 5), (2, 21)])
+def test_jax_msm_recomputes_pins(curves, S, N):
+    jc, _ = curves
+    pts, ks, JP, _, k = _inputs(jc, S, N)
+    want = jc.to_host_points(jmsm.msm(jc, JP, k, engine="gather"))
+    assert want == _host_msm(jc.host, pts, ks)
+    assert _points_sha256(want) == JAX_MSM_SHA256[(S, N)]
 
 
 def test_msm_lanes_plain_schedule(curves):

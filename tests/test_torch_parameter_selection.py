@@ -2,13 +2,15 @@
 the reference's `examples/parameter_selection.rs` flow) on the CPU, against
 the JAX package's `tests/test_parameter_selection.py` points.
 
-One scaled-down sweep on the Stark curve, `seed=3`: its (2, 4) point is
-`benchmark_parameters(2, 4, stark, seed=3)`, the JAX test's point, and must
-give the JAX package's card count, proof size and proof bytes (their
-SHA-256, so the port draws keys, deck, permutation and masking factors in
-the JAX order; pinned below, the `slow` test recomputes them), and be
-verified; the (4, 2) point keeps the JAX test's size ordering (more rows m,
-a larger proof). Tolerance: exact.
+One scaled-down sweep on the Stark curve, `seed=3`, a point a case (each
+point draws from its own `GameRng(seed)`, so a sweep of one point gives
+that point's row): its (2, 4) point is `benchmark_parameters(2, 4, stark,
+seed=3)`, the JAX test's point, and each point must give the JAX package's
+card count, proof size and proof bytes (their SHA-256, so the port draws
+keys, deck, permutation and masking factors in the JAX order; pinned below,
+the `slow` test recomputes them), and be verified; the (4, 2) point keeps
+the JAX test's size ordering (more rows m, a larger proof). Tolerance:
+exact.
 """
 
 import hashlib
@@ -49,15 +51,16 @@ def test_reference_sweep_is_the_rust_one():
     assert all(m * n == 300 for m, n in ps.REFERENCE_SWEEP)
 
 
-def test_scaled_down_sweep_matches_jax(monkeypatch):
+@pytest.mark.parametrize("i", range(len(SWEEP)), ids=[f"{m}x{n}" for m, n in SWEEP])
+def test_scaled_down_sweep_matches_jax(monkeypatch, i):
     """`benchmark_parameters` raises unless the verifier accepts the proof."""
     digests = record_proofs(monkeypatch, ps.proof_io)
-    rows = ps.run_sweep(sweep=SWEEP, curve=curve_mod.stark_curve(), seed=3, verbose=False, device="cpu")
-    assert [(r["m"], r["n"]) for r in rows] == SWEEP
-    assert [(r["cards"], r["proof_bytes"]) for r in rows] == JAX_PIN
-    assert digests == JAX_PROOF_SHA256
+    rows = ps.run_sweep(sweep=[SWEEP[i]], curve=curve_mod.stark_curve(), seed=3, verbose=False, device="cpu")
+    assert [(r["m"], r["n"]) for r in rows] == [SWEEP[i]]
+    assert [(r["cards"], r["proof_bytes"]) for r in rows] == [JAX_PIN[i]]
+    assert digests == [JAX_PROOF_SHA256[i]]
     assert all(r["prove_s"] > 0 and r["verify_s"] > 0 for r in rows)
-    assert rows[1]["proof_bytes"] > rows[0]["proof_bytes"]  # ~6m|G| + 4n|Z|: more rows, a larger proof
+    assert JAX_PIN[1][1] > JAX_PIN[0][1]  # ~6m|G| + 4n|Z|: more rows, a larger proof
 
 
 @pytest.mark.slow
