@@ -102,6 +102,22 @@ Phases (every failure exits non-zero; nothing is caught and ignored):
    `MPTPU_BENCH_SMOKE=1`; and the dp scaling curve (`parallel/scaling.py`)
    at world size 1 on NCCL, B = 128, (2, 26). Every launch at a shape no
    earlier phase compared is held against its plain version.
+10. The fused latency mode (ninth slice; `fused_phase`): with
+   `fuse_b_max` set, the staged prove and verify captured as CUDA graphs
+   (`arguments/fused.py`) and replayed. (a) Phase 3's B=1 deck at
+   `msm_nc = 1`: the fused proof equal to phase 3's B=1 proof leaf for
+   leaf, every flag true, phase 3's tampered deck rejected; each graph's
+   capture time, the kernel launches its capture recorded (equal to phase
+   3's B=1 counts), the median of five replayed prove+verify beside phase
+   3's staged B=1 median, one replay traced (device-busy ms, idle share)
+   and `FUSED_MISSES`. (b) A second statement (another seed and aggregate
+   key) through the same graphs equal to its staged proof, (a)'s proof
+   unchanged. (c) B = 4 with `fuse_b_max = 4` equal to staged B = 4. (d)
+   B=1 at `msm_nc = 8` equal to (a)'s proof, the chunked and fold kernels
+   inside a graph. (e) `play_round(seed=7, m=2, n=26)` fused, its cards
+   phase 5's. (f) `bench.main()` at `MPTPU_BENCH_BATCH=1` with
+   `MPTPU_FUSE_B=1`. Every launch at a shape no earlier phase compared is
+   held against its plain version.
 
 Every phase runs with `msm_nc = 1` (the per-statement MSM kernel) unless it
 says otherwise, whatever `MPTPU_MSM_NC` holds.
@@ -708,7 +724,7 @@ def main() -> int:
     engine_ms = gather_phase(dev, g)
     arg_s, arg_launches = argument_phase(dev)
     kernels["fold_windows"]["launches"] = arg_launches["fold_windows"]
-    round_s, round_launches = round_phase(dev)
+    round_s, round_launches, round_opened = round_phase(dev)
     for k, v in round_launches.items():
         kernels[k]["launches_round"] = v
 
@@ -738,9 +754,18 @@ def main() -> int:
 
     # ------------------------------------------------ 9. the bench's knobs
     seen8 = parallel.pop("seen")  # phase 8 held each of these against plain
-    bench9 = bench_phase(dev, g, data, proof, prove_verify, {k: compared8[k] | seen8[k] for k in compared8}, pv_ms)
+    compared9 = {k: compared8[k] | seen8[k] for k in compared8}
+    bench9 = bench_phase(dev, g, data, proof, prove_verify, compared9, pv_ms)
     for k in kernels:
         kernels[k]["launches_bench"] = bench9["launches"][k]
+
+    # ------------------------------------------- 10. the fused latency mode
+    seen9 = bench9.pop("seen")  # phase 9 held each of these against plain
+    fused10 = fused_phase(dev, g, data, data1, proof1, bad, launches1, pv1_ms, (round_s, round_opened),
+                          {k: compared9[k] | seen9[k] for k in compared9})
+    for k in kernels:
+        kernels[k]["launches_fused"] = fused10["launches"][k]
+        kernels[k]["launches_fused_nc8"] = fused10["launches_nc8"][k]
 
     meta = {
         "mont_mul": ("mental_poker_tpu_torch/csrc/field.cu", "mental_poker_tpu/ops/pallas/field.py:128"),
@@ -753,6 +778,7 @@ def main() -> int:
              "plain_ms_s128", "bound_ms_s128", "chain_ms", "msm_lanes_nc1_ms", "msm_lanes_nc8_ms",
              "ms_by_shape", "device_ms", "device_ms_s128", "device_ms_b128", "table_device_ms",
              "window_device_ms", "ms_b1", "launches_multigame", "launches_deck1024", "launches_parallel", "launches_bench",
+             "launches_fused", "launches_fused_nc8",
              "bound_ms_model", "imads_per_add", "input_copies")
     rows = []
     for kname, (src, replaces) in meta.items():
@@ -771,7 +797,8 @@ def main() -> int:
                     "multigame_64x8": {k: v for k, v in multigame.items() if k != "launches"},
                     "msm_1024": msm1024, "deck1024": {k: v for k, v in deck1024.items() if k != "launches"},
                     "parallel": {k: v for k, v in parallel.items() if k != "launches"},
-                    "bench": {k: v for k, v in bench9.items() if k != "launches"}}))
+                    "bench": {k: v for k, v in bench9.items() if k != "launches"},
+                    "fused": {k: v for k, v in fused10.items() if not k.startswith("launches")}}))
     log(f"chip_smoke: {time.perf_counter() - started:.1f} s in all")
     print(json.dumps({"kernels": rows}))
     print(card)
@@ -1276,7 +1303,7 @@ def round_phase(dev, n=26, num_shuffles=4):
     """5d. `play_round(seed=7, m=2, n, 4 players, num_shuffles)`, the
     reference's round.rs shape at n = 26: four distinct cards, each peek
     equal to its open (play_round raises otherwise). Returns (seconds,
-    launches)."""
+    launches, the opened cards)."""
     import torch
 
     from mental_poker_tpu_torch.models.round import play_round
@@ -1294,7 +1321,7 @@ def round_phase(dev, n=26, num_shuffles=4):
     for k in STAGED_KERNELS:  # the round's shuffles are staged proofs: no gather MSM
         if launches[k] <= 0:
             raise AssertionError(f"the round did not launch kernel {k}")
-    return secs, launches
+    return secs, launches, opened
 
 
 @contextlib.contextmanager
@@ -2028,7 +2055,197 @@ def bench_phase(dev, g, data, proof, prove_verify, compared: dict, pv_ms: float,
 
     new = check_new_shapes(dev, g, seen, compared, 1101, "bench")
     log(f"bench: phase 9 took {time.perf_counter() - t_start:.1f} s")
-    return dict(out, launches=launches, new_shapes={k_: len(v) for k_, v in new.items()})
+    return dict(out, launches=launches, new_shapes={k_: len(v) for k_, v in new.items()}, seen=seen)
+
+
+def fused_phase(dev, g, data, data1, proof1, bad, launches1, pv1_ms, round5, compared: dict, reps: int = REPS) -> dict:
+    """10. The fused latency mode (`arguments/fused.py`, ninth slice) on the
+    main path at full width: Stark, (2, 26), window-8 tables (`g`, phase
+    3's), the kernels' launch shapes recorded throughout.
+
+    (a) Phase 3's B=1 deck (`data1`) with `fuse_b_max = 1`, `msm_nc = 1`:
+    the first prove+verify captures the two graphs; the proof equals
+    `proof1` (phase 3's staged B=1 proof) leaf for leaf, every flag is true,
+    and phase 3's tampered deck (`bad`) fails with "Hadamard Product (5.1)".
+    The launches the two captures recorded equal `launches1` (phase 3's B=1
+    prove+verify). The median of `reps` replayed prove+verify, beside
+    `pv1_ms` (phase 3's staged median); one more replay traced by
+    `profiling.trace` (device-busy ms; idle share against the median).
+    (b) A second statement (another game: seed and aggregate key) through
+    the same graphs, no capture made, equal to its staged proof, and (a)'s
+    proof still equal to `proof1`. (c) The first four decks of phase 3's
+    B=128 batch with `fuse_b_max = 4`: equal to their staged proof, every
+    flag true. (d) `data1` at `msm_nc = 8`: equal to (a)'s proof, its
+    captures launching the chunked and fold kernels and not the lane
+    kernel. (e) `play_round(seed=7, m=2, n=26)` with `fuse_b_max = 1`: the
+    cards of phase 5d (`round5`: its seconds and cards). (f) `bench.main()`
+    with `MPTPU_BENCH_BATCH=1`, `MPTPU_FUSE_B=1`: its JSON line, with
+    `fuse_b_max` 1. `FUSED_MISSES` is printed. Last, every launch at a
+    shape `compared` does not hold against its kernel's plain version."""
+    import io
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from mental_poker_tpu_torch import bench, config, params, profiling
+    from mental_poker_tpu_torch.arguments import device_api, fused
+    from mental_poker_tpu_torch.arguments.device import leaves
+    from mental_poker_tpu_torch.crypto import elgamal
+    from mental_poker_tpu_torch.crypto.elgamal import Ciphertexts
+    from mental_poker_tpu_torch.crypto.errors import HADAMARD, ProofVerificationError
+    from mental_poker_tpu_torch.models.round import play_round
+    from mental_poker_tpu_torch.ops import cuda as cuda_ops
+    from mental_poker_tpu_torch.ops.curve import map_point
+    from mental_poker_tpu_torch.utils.rand import GameRng
+
+    t_start = time.perf_counter()
+    cv, m, n = g.cv, 2, 26
+    N = m * n
+    q, L = cv.host.order, cv.fr.L
+    out = {}
+    misses0 = fused.FUSED_MISSES
+    same = lambda a, b: len(leaves(a)) == len(leaves(b)) and all(torch.equal(x, y) for x, y in zip(leaves(a), leaves(b)))
+
+    def prove_verify(gg, stmt):
+        deck, shuffled, pi, rho, rand = stmt
+        proof = device_api.prove_shuffle(cv, m, n, gg.keys, deck, shuffled, pi, rho, rand)
+        checks = device_api.verify_shuffle(cv, m, n, gg.keys, deck, shuffled, proof)
+        torch.cuda.synchronize()
+        return proof, checks
+
+    def captured(run):
+        """run() -> (its result, the graphs it captured: {name: fused.Captured})."""
+        before = set(fused.GRAPHS)
+        res = run()
+        return res, {key[0]: fused.GRAPHS[key] for key in set(fused.GRAPHS) - before}
+
+    def all_true(checks) -> bool:
+        return all(bool(c.all()) for c in checks)
+
+    with kernel_shapes() as seen:
+        # (a) phase 3's B=1 deck
+        with config.override(fuse_b_max=1, msm_nc=1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            (proof_f, checks_f), caps = captured(lambda: prove_verify(g, data1))
+            first_s = time.perf_counter() - t0
+            require(sorted(caps) == ["fused_prove", "fused_verify"], f"captured {sorted(caps)}")
+            cap_launches = {k: sum(c.launches[k] for c in caps.values()) for k in cuda_ops.LAUNCHES}
+            require(cap_launches == launches1, f"the captures launched {cap_launches}, phase 3's B=1 {launches1}")
+            require(same(proof_f, proof1), "the fused B=1 proof differs from phase 3's staged B=1 proof")
+            require(all_true(checks_f), f"the fused verifier rejected an honest deck: {checks_f}")
+            checks_bad = device_api.verify_shuffle(cv, m, n, g.keys, data1[0], bad, proof1)
+            try:
+                device_api.raise_by_flags(checks_bad)
+            except ProofVerificationError as e:
+                require(e.name == HADAMARD, f"the fused verifier failed the tampered deck with {e.name!r}")
+            else:
+                raise AssertionError("the fused verifier accepted a tampered deck")
+            cuda_ops.reset_launches()
+            times = []
+            for _ in range(reps):
+                t0 = time.perf_counter()
+                prove_verify(g, data1)
+                times.append((time.perf_counter() - t0) * 1e3)
+            require(not any(cuda_ops.LAUNCHES.values()), f"a replay went through a wrapper: {cuda_ops.LAUNCHES}")
+            med = sorted(times)[len(times) // 2]
+            with tempfile.TemporaryDirectory() as tmp:
+                tr = profiling.trace(lambda: prove_verify(g, data1), tmp, "fused_b1", dev)
+        capture_s = {name: c.capture_s for name, c in caps.items()}
+        busy = tr["device_busy_ms"]
+        idle = 1 - busy / med
+        log(f"fused (a) B=1: first prove+verify {first_s:.2f} s (captures {capture_s} s); capture launches "
+            f"{cap_launches} = phase 3's B=1; proof equal to phase 3's staged proof ({len(leaves(proof_f))} leaves); "
+            f"tampered deck rejected; replayed prove+verify {med:.2f} ms median (runs {[round(t, 2) for t in times]}), "
+            f"{1e3 / med:.3f} pairs/s, beside phase 3's staged {pv1_ms:.1f} ms ({1e3 / pv1_ms:.3f} pairs/s); "
+            f"traced replay ({tr['wall_s'] * 1e3:.2f} ms): device busy {busy:.3f} ms in {tr['device_launches']} "
+            f"launches, idle share {idle:.4f} of the median replay, {tr['idle_share_of_traced']:.4f} of the traced "
+            f"one; kernel device ms {tr['kernel_device_ms']}; top {tr['top_ops'][:5]}")
+        out.update(first_s=first_s, capture_s=capture_s, replay_ms=times, replay_median_ms=med,
+                   replay_pairs_per_s=1e3 / med, staged_b1_median_ms=pv1_ms, device_busy_ms=busy,
+                   device_launches=tr["device_launches"], kernel_device_ms=tr["kernel_device_ms"],
+                   idle_share_of_median=idle, traced_wall_ms=tr["wall_s"] * 1e3)
+        launches = cap_launches
+
+        # (b) a second statement, another game, through the same graphs
+        g2 = params.setup(GameRng(4321), m, n, c=WINDOW, device=dev)
+        r = GameRng(4322)
+        ab = torch.as_tensor(r.scalar_limbs(q, (2, 1, N), L).astype(np.int32), device=dev)
+        deck2 = Ciphertexts(g2.enc.gen_table.mul(ab[0]), g2.enc.gen_table.mul(ab[1]))
+        pi2 = torch.as_tensor(r.permutation(N).astype(np.int64), device=dev)[None]
+        rho2 = torch.as_tensor(r.scalar_limbs(q, (1, N), L).astype(np.int32), device=dev)
+        perm2 = Ciphertexts(*(map_point(lambda t: torch.gather(t, 1, pi2[..., None].expand(t.shape)), c)
+                              for c in deck2))
+        shuf2 = elgamal.cipher_add(cv, perm2, elgamal.encrypt_zero(g2.enc, g2.agg_table, rho2))
+        data2 = (deck2, shuf2, pi2, rho2, device_api.sample_shuffle_rand(r, m, n, L, q, batch=1, device=dev))
+        with config.override(fuse_b_max=1, msm_nc=1):
+            (proof2_f, checks2_f), caps2 = captured(lambda: prove_verify(g2, data2))
+        with config.override(fuse_b_max=0, msm_nc=1):
+            proof2_s, _ = prove_verify(g2, data2)
+        require(not caps2, f"the second statement captured {sorted(caps2)}: its signature should be (a)'s")
+        require(same(proof2_f, proof2_s) and all_true(checks2_f), "the second statement's fused proof differs "
+                "from its staged proof or was rejected")
+        require(not same(proof2_f, proof_f), "the second statement's proof equals the first's")
+        require(same(proof_f, proof1), "the second statement changed (a)'s returned proof")
+        log(f"fused (b): a second game through the same graphs equals its staged proof; (a)'s proof unchanged")
+
+        # (c) B = 4
+        deck, shuffled, pi, rho, rand = data
+        cut = lambda c: Ciphertexts(*(map_point(lambda t: t[:4], p_) for p_ in c))
+        data4 = (cut(deck), cut(shuffled), pi[:4], rho[:4], type(rand)(*(t[:4] for t in rand)))
+        with config.override(fuse_b_max=4, msm_nc=1):
+            (proof4_f, checks4_f), caps4 = captured(lambda: prove_verify(g, data4))
+        with config.override(fuse_b_max=0, msm_nc=1):
+            proof4_s, _ = prove_verify(g, data4)
+        require(sorted(caps4) == ["fused_prove", "fused_verify"], f"B=4 captured {sorted(caps4)}")
+        require(same(proof4_f, proof4_s) and all_true(checks4_f), "the fused B=4 proof differs from staged B=4")
+        out["capture_s_b4"] = {name: c.capture_s for name, c in caps4.items()}
+        log(f"fused (c) B=4: equal to the staged B=4 proof, every flag true; captures {out['capture_s_b4']} s")
+
+        # (d) B = 1 at msm_nc = 8: the chunked and fold kernels inside a graph
+        with config.override(fuse_b_max=1, msm_nc=NC):
+            (proof8_f, checks8_f), caps8 = captured(lambda: prove_verify(g, data1))
+        launches8 = {k: sum(c.launches[k] for c in caps8.values()) for k in cuda_ops.LAUNCHES}
+        require(sorted(caps8) == ["fused_prove", "fused_verify"], f"nc = {NC} captured {sorted(caps8)}")
+        require(launches8["msm_chunked"] > 0 and launches8["fold_windows"] == launches8["msm_chunked"]
+                and not launches8["msm_lanes"], f"the nc = {NC} graphs launched {launches8}")
+        require(same(proof8_f, proof_f) and all_true(checks8_f), f"the fused nc = {NC} proof differs from (a)'s")
+        out["capture_s_nc8"] = {name: c.capture_s for name, c in caps8.items()}
+        log(f"fused (d) B=1, msm_nc={NC}: equal to (a)'s proof; capture launches {launches8}")
+
+        # (e) the reference's round, fused
+        round_s, round_opened = round5
+        with config.override(fuse_b_max=1, msm_nc=1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            opened = play_round(seed=7, m=m, n=n, num_shuffles=4, device=dev)
+            torch.cuda.synchronize()
+            round_f = time.perf_counter() - t0
+        require(opened == round_opened, f"the fused round opened {opened}, phase 5d's {round_opened}")
+        out.update(round_s=round_f, round_staged_s=round_s)
+        log(f"fused (e) round (2, {n}), 4 players, 4 shuffles: {round_f:.2f} s (phase 5d staged {round_s:.2f} s); "
+            f"opened {opened}, phase 5d's cards")
+
+        # (f) the bench's latency mode, fused
+        buf = io.StringIO()
+        with environment(MPTPU_MSM_NC="1", MPTPU_BENCH_BATCH="1", MPTPU_FUSE_B="1", MPTPU_BENCH_REPS="3"), \
+                contextlib.redirect_stdout(buf):
+            rc = bench.main()
+        line = json.loads(buf.getvalue().strip().splitlines()[-1])
+        require(rc == 0 and line["fuse_b_max"] == 1 and len(line["runs_s"]) == 3
+                and line["metric"] == "torch_shuffle52_prove_verify_pairs_per_s", f"fused bench main(): rc {rc}, {line}")
+        out["bench_b1_fused"] = line
+        log(f"fused (f) bench main() with MPTPU_BENCH_BATCH=1 MPTPU_FUSE_B=1: {line}")
+
+    out["fused_misses"] = fused.FUSED_MISSES - misses0
+    log(f"fused: FUSED_MISSES {fused.FUSED_MISSES} ({out['fused_misses']} in this phase); "
+        f"{len(fused.GRAPHS)} graphs captured")
+    new = check_new_shapes(dev, g, seen, compared, 1201, "fused")
+    out["new_shapes"] = {k_: len(v) for k_, v in new.items()}
+    out["phase_s"] = time.perf_counter() - t_start
+    log(f"fused: phase 10 took {out['phase_s']:.1f} s")
+    return dict(out, launches=launches, launches_nc8=launches8)
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -117,6 +117,41 @@ class ShuffleChecks(NamedTuple):
     multi_exp: torch.Tensor
 
 
+# ---------------------------------------------------------------- trees
+# A tree is tuples, NamedTuples and dicts nested to any depth; anything else
+# (a tensor, a list) is a leaf. The proof containers, decks, keys and
+# randomness bundles above are such trees.
+
+
+def leaves(tree) -> list:
+    """The leaves in order: fields in order, dict values in insertion order."""
+    if isinstance(tree, dict):
+        return [leaf for t in tree.values() for leaf in leaves(t)]
+    if isinstance(tree, tuple):
+        return [leaf for t in tree for leaf in leaves(t)]
+    return [tree]
+
+
+def rebuild(template, flat):
+    """A tree shaped like `template` with the leaves of `flat`, in order."""
+    it = iter(flat)
+
+    def go(t):
+        if isinstance(t, dict):
+            return {k: go(v) for k, v in t.items()}
+        if isinstance(t, tuple):
+            parts = [go(c) for c in t]
+            return type(t)(*parts) if hasattr(t, "_fields") else tuple(parts)
+        return next(it)
+
+    return go(template)
+
+
+def tree_map(fn, tree):
+    """fn over every leaf of a tree (or one tensor)."""
+    return rebuild(tree, [fn(t) for t in leaves(tree)])
+
+
 def to_aff(cv: Curve, P: PointP) -> AffP:
     return AffP(*cv.to_affine(P))
 

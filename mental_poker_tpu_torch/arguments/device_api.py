@@ -112,20 +112,14 @@ def raise_by_flags(checks: dev.ShuffleChecks) -> None:
 # ---------------------------------------------------------------------------
 
 
-def _tree_map(fn, tree):
-    if isinstance(tree, tuple):
-        return type(tree)(*(_tree_map(fn, t) for t in tree))
-    return fn(tree)
-
-
 def squeeze_proof(p: dev.ShuffleProofDev) -> dev.ShuffleProofDev:
     """Drop the leading batch axis of a B == 1 proof."""
-    return _tree_map(lambda t: t[0], p)
+    return dev.tree_map(lambda t: t[0], p)
 
 
 def expand_proof(p: dev.ShuffleProofDev) -> dev.ShuffleProofDev:
     """Add a leading batch axis (B == 1)."""
-    return _tree_map(lambda t: t[None], p)
+    return dev.tree_map(lambda t: t[None], p)
 
 
 def _aff_to_hosts(cv: Curve, a: dev.AffP) -> list:

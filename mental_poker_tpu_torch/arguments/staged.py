@@ -15,6 +15,14 @@ witness and randomness give the same proof, leaf for leaf.
 With `stage_timing` on (`MPTPU_STAGE_TIMING=1`), each stage method is timed
 into `STAGE_TIMES` under the JAX package's program keys, and
 `stage_report()` reads them as the JAX package's does.
+
+With `fuse_b_max` set (`MPTPU_FUSE_B`), a prove or verify of B proofs with
+0 < B <= `fuse_b_max` runs its flow fused, as the JAX package's `_fused`
+does: on the card as one CUDA graph (`fused.py`). While fusing, the stages
+neither time nor fence, and each challenge is one round of candidate draws
+with no host sync (`_sample`). Every tensor the flow builds from host
+values is made once per device (`_const`, and the caches of the transcript
+and byte-layout modules), so that the flow copies nothing from the host.
 """
 
 from __future__ import annotations
@@ -60,6 +68,12 @@ _NO_MID = b"hadamard:no-mid"
 # flags) so a failing flag can be localised.
 DEBUG_FLAGS = False
 
+# True while a fused flow runs (`StagedShuffle._fused`): the stage wrappers
+# neither time nor fence, and `_sample` draws one round of candidates,
+# keeping each draw's undone lanes in `_UNDONE` for `fused.py` to count.
+_FUSING = [False]
+_UNDONE: list = []
+
 # Per-stage wall-clock accounting, on with `stage_timing`
 # (MPTPU_STAGE_TIMING=1): key -> [total_s, calls, first_call_s]. The first
 # call includes the kernel libraries' load; the steady cost is
@@ -97,21 +111,37 @@ def _timed(key, method, self, args):
 
 def _stage(key=None):
     """A stage method, timed by `_timed` when `stage_timing` is on (read at
-    each call); off, the method runs alone. `key(self, *args)` gives the
-    JAX package's program key of the call (default `self._k(name)`)."""
+    each call) and no flow is fusing; otherwise the method runs alone.
+    `key(self, *args)` gives the JAX package's program key of the call
+    (default `self._k(name)`)."""
 
     def wrap(method):
         name = method.__name__
 
         @functools.wraps(method)
         def stage(self, *args):
-            if not config.get_config().stage_timing:
+            if _FUSING[0] or not config.get_config().stage_timing:
                 return method(self, *args)
             return _timed(self._k(name) if key is None else key(self, *args), method, self, args)
 
         return stage
 
     return wrap
+
+
+def _sample(st, fr, nch: int):
+    """`nch` challenges from the transcript: `sample_field`'s rejection
+    loop, or while fusing its one-round draw (`sample_field_once`), the
+    undone lanes of each draw kept in `_UNDONE`."""
+    chs = []
+    for _ in range(nch):
+        if _FUSING[0]:
+            st, c, undone = dt.sample_field_once(st, fr)
+            _UNDONE.append(undone)
+        else:
+            st, c = dt.sample_field(st, fr)
+        chs.append(c)
+    return (st,) + tuple(chs)
 
 
 def _tree_root_dev(leaf_bytes: torch.Tensor) -> torch.Tensor:
@@ -180,6 +210,46 @@ class StagedShuffle:
         self.n = n
         self.N = m * n
         self.fr = cv.fr
+        # The zero argument's product terms (k, i, j) and the multi-exp's 2m
+        # diagonals (diagonal k takes exponent row j = k - m + i of block
+        # i - 1): host lists, with the index tensors made from them once per
+        # device by `_const`.
+        self._pairs = [
+            (k, i, m + 1 + i - k - 1)
+            for k in range(2 * m + 1)
+            for i in range(m + 1)
+            if 1 <= m + 1 + i - k <= m + 1
+        ]
+        self._diagonals = [
+            [(i - 1, k - m + i) for i in range(1, m + 1) if 0 <= k - m + i <= m] for k in range(2 * m)
+        ]
+        diag_blocks = np.zeros((2 * m, m), np.int64)
+        for k, picks in enumerate(self._diagonals):
+            diag_blocks[k, : len(picks)] = [blk for blk, _ in picks]
+        self._host = {
+            "zero_i": torch.tensor([p[1] for p in self._pairs]),
+            "zero_j": torch.tensor([p[2] for p in self._pairs]),
+            "diag_blocks": torch.as_tensor(diag_blocks),
+            "one_to_N": cv.fr.small_int_limbs(np.arange(1, self.N + 1), "cpu"),
+        }
+        self._consts: dict = {}
+
+    def _const(self, name: str, device) -> torch.Tensor:
+        """`_host[name]` on `device`, copied once: a copy from the host
+        cannot be captured in a CUDA graph."""
+        key = (name, torch.device(device))
+        t = self._consts.get(key)
+        if t is None:
+            t = self._consts[key] = self._host[name].to(device)
+        return t
+
+    def _fused(self, name: str, flow, *args):
+        """The flow fused (`fused.py`): one CUDA graph on the card, eager on
+        the CPU, with one-round challenge draws; a draw that leaves a lane
+        undone reruns the flow staged."""
+        from . import fused  # imported here: fused.py imports this module
+
+        return fused.run(self, name, flow, args)
 
     def _k(self, name, *extra):
         """The JAX package's program key of a stage (`STAGE_TIMES`)."""
@@ -211,27 +281,16 @@ class StagedShuffle:
 
     @_stage(lambda s, st, aff, nch: s._k("abs_pts", aff.x.shape[1], nch))
     def abs_pts(self, st, aff: AffP, nch: int):
-        st = dt.absorb(st, aff_blob(self.cv, aff))
-        chs = []
-        for _ in range(nch):
-            st, c = dt.sample_field(st, self.fr)
-            chs.append(c)
-        return (st,) + tuple(chs)
+        return _sample(dt.absorb(st, aff_blob(self.cv, aff)), self.fr, nch)
 
     @_stage(lambda s, st, data, nch: s._k("abs_const", data, nch))
     def abs_const(self, st, data: bytes, nch: int):
-        st = dt.absorb(st, sd.const_bytes(data, st.widx.shape, st.widx.device))
-        chs = []
-        for _ in range(nch):
-            st, c = dt.sample_field(st, self.fr)
-            chs.append(c)
-        return (st,) + tuple(chs)
+        return _sample(dt.absorb(st, sd.const_bytes(data, st.widx.shape, st.widx.device)), self.fr, nch)
 
     @_stage()
     def abs_me(self, st, pts_aff: AffP, e0: AffP, e1: AffP):
         eb = torch.cat([aff_bytes(self.cv, e0), aff_bytes(self.cv, e1)], dim=-1)  # [B, 2m, 2pb]
-        st = dt.absorb(st, sd.concat_bytes(aff_blob(self.cv, pts_aff), eb.flatten(-2)))
-        return dt.sample_field(st, self.fr)
+        return _sample(dt.absorb(st, sd.concat_bytes(aff_blob(self.cv, pts_aff), eb.flatten(-2))), self.fr, 1)
 
     @_stage()
     def make_a(self, pi):
@@ -259,7 +318,7 @@ class StagedShuffle:
         zb = z_m[:, None, :]
         dz_m = fr.sub(fr.add(fr.mont_mul(y_m[:, None, :], a_m), b_m), zb)
         t_m = fr.add(fr.mont_mul(y_m[:, None, :], fr.to_mont(r_c)), fr.to_mont(s_c))  # [B, m, L]
-        i_m = fr.to_mont(fr.small_int_limbs(np.arange(1, N + 1), dev))
+        i_m = fr.to_mont(self._const("one_to_N", dev))
         terms = fr.sub(fr.add(fr.mont_mul(y_m[:, None, :], i_m), xpow), zb)
         v_m = fr.prod_mod(terms, axis=1)
         dz_rows = dz_m.reshape(B, m, n, fr.L)
@@ -304,20 +363,12 @@ class StagedShuffle:
         R = torch.cat([r0[:, None], R_rows], dim=1)
         S = torch.cat([S_rows, sm1[:, None]], dim=1)
         ypow = fr.powers(hy_m, n)  # [B, n, L]
-        pairs = [
-            (k, i, m + 1 + i - k - 1)
-            for k in range(2 * m + 1)
-            for i in range(m + 1)
-            if 1 <= m + 1 + i - k <= m + 1
-        ]
         dev = hy_m.device
-        ii = torch.tensor([p[1] for p in pairs], device=dev)
-        jj = torch.tensor([p[2] for p in pairs], device=dev)
-        prods = fr.mont_mul(A[:, ii], Bv[:, jj])  # [B, P, n, L]
+        prods = fr.mont_mul(A[:, self._const("zero_i", dev)], Bv[:, self._const("zero_j", dev)])  # [B, P, n, L]
         terms = fr.sum_mod(fr.mont_mul(prods, ypow[:, None]), axis=2)  # [B, P, L]
         d = []
         for k in range(2 * m + 1):
-            sel = [idx for idx, p in enumerate(pairs) if p[0] == k]
+            sel = [idx for idx, p in enumerate(self._pairs) if p[0] == k]
             acc = terms[:, sel[0]]
             for s_ in sel[1:]:
                 acc = fr.add(acc, terms[:, s_])
@@ -401,20 +452,14 @@ class StagedShuffle:
         bl1 = cv.add(fixed_mul(cv, keys.sgen, fr.from_mont(b_k)), fixed_mul(cv, keys.pk, tau_cc))
 
         # the 2m diagonals of both ciphertext components as one MSM [B, 4m, m*n]
-        sel_ids = np.zeros((2 * m, m), np.int64)
         zero_row = torch.zeros((B, n, L), dtype=torch.int32, device=dev)
         scal_rows = []
-        for k in range(2 * m):
-            srows = []
-            for i in range(1, m + 1):
-                j = k - m + i
-                if 0 <= j <= m:
-                    sel_ids[k, len(srows)] = i - 1
-                    srows.append(fr.from_mont(rows[:, j]))
+        for picks in self._diagonals:
+            srows = [fr.from_mont(rows[:, j]) for _, j in picks]
             srows += [zero_row] * (m - len(srows))
             scal_rows.append(torch.cat(srows, dim=1))
         scal = torch.stack(scal_rows, dim=1)  # [B, 2m, m*n, L]
-        idx = torch.as_tensor(sel_ids, device=dev)
+        idx = self._const("diag_blocks", dev)
         fqL = dout.c0.x.shape[-1]
 
         def diag(P: PointP) -> PointP:
@@ -454,6 +499,14 @@ class StagedShuffle:
         rho_c: torch.Tensor,  # canonical [B, N, L]
         rand: ShuffleRand,  # leaves with a leading [B]
     ) -> ShuffleProofDev:
+        """Batch-first prove: the stage flow, fused when 0 < B <=
+        `fuse_b_max` (`MPTPU_FUSE_B`), as `mental_poker_tpu/arguments/staged.py:670`."""
+        B = pi.shape[0]
+        if 0 < B <= config.get_config().fuse_b_max:
+            return self._fused("fused_prove", self._prove_flow, keys, deck_in, deck_out, pi, rho_c, rand)
+        return self._prove_flow(keys, deck_in, deck_out, pi, rho_c, rand)
+
+    def _prove_flow(self, keys, deck_in, deck_out, pi, rho_c, rand) -> ShuffleProofDev:
         cv, m, fr = self.cv, self.m, self.fr
         pi = pi.long()
         st = self.stmt(keys, deck_in, deck_out)
@@ -543,7 +596,7 @@ class StagedShuffle:
         B = x.shape[0]
         dev = x.device
         xpow = fr.powers(x, N)
-        i_m = fr.to_mont(fr.small_int_limbs(np.arange(1, N + 1), dev))
+        i_m = fr.to_mont(self._const("one_to_N", dev))
         zb_ = z[:, None, :]
         v_m = fr.prod_mod(fr.sub(fr.add(fr.mont_mul(y[:, None, :], i_m), xpow), zb_), axis=1)
         ypow = fr.powers(hy, n)
@@ -641,6 +694,14 @@ class StagedShuffle:
         deck_out: Ciphertexts,
         proof: ShuffleProofDev,
     ) -> ShuffleChecks:
+        """Batch-first verify; fused at 0 < B <= `fuse_b_max`, as
+        `mental_poker_tpu/arguments/staged.py:969`."""
+        B = proof.c_a.x.shape[0]
+        if 0 < B <= config.get_config().fuse_b_max:
+            return self._fused("fused_verify", self._verify_flow, keys, deck_in, deck_out, proof)
+        return self._verify_flow(keys, deck_in, deck_out, proof)
+
+    def _verify_flow(self, keys, deck_in, deck_out, proof) -> ShuffleChecks:
         cv, m, N, fr = self.cv, self.m, self.N, self.fr
 
         # ---- transcript replay

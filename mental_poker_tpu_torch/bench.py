@@ -25,13 +25,17 @@ run. The JSON line holds `metric`, `value` (units over the mean run), `unit`,
 `vs_baseline` (against `bench.py`'s analytic estimates of the Rust reference
 on one CPU core: 5.0 shuffle pairs/s, 170,000 MSM points/s, 0.3 deck1024
 pairs/s, 1.6 games/s), `runs_s` (every timed run), `stage_timing` (whether
-the runs synchronized after every stage) and `device` (the card's name and
-power limit from nvidia-smi).
+the runs synchronized after every stage), `fuse_b_max` (batches up to this
+size ran fused, as CUDA graphs; 0: none did) and `device` (the card's name
+and power limit from nvidia-smi).
 
 Knobs, as `bench.py` reads them (`config.py`):
 
 - `MPTPU_BENCH_BATCH` (128): the decks of a shuffle52 batch; 1 is the
   single-proof latency mode.
+- `MPTPU_FUSE_B=1` with `MPTPU_BENCH_BATCH=1`: the B=1 prove and verify
+  each replay a CUDA graph of the staged flow, captured in the warm run
+  (the fused latency mode, `arguments/fused.py`); unset, they run staged.
 - `MPTPU_BENCH_SMOKE=1`: shuffle52 at (m, n) = (2, 4).
 - `MPTPU_STAGE_TIMING=1`: shuffle52 prints to stderr the mean prove+verify
   and one line a stage (`arguments/staged.py::stage_report`, steady ms a
@@ -153,6 +157,7 @@ def result(metric: str, units: float, runs: list, unit: str, baseline: float, di
         "vs_baseline": round(rate / baseline, 4),
         "runs_s": runs,
         "stage_timing": config.get_config().stage_timing,
+        "fuse_b_max": config.get_config().fuse_b_max,
         "device": device_name(device),
     }
 

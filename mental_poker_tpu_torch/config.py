@@ -15,6 +15,11 @@ Only the knobs the port reads are kept:
 - `fixed_window_bits` (`MPTPU_FIXED_WINDOW`, default 4): the window of the
   fixed-base tables that `DLCards`, its ElGamal and Pedersen schemes and
   `FixedBaseTable` / `FixedBaseMSM` build when no window is given.
+- `fuse_b_max` (`MPTPU_FUSE_B`, default 0, off): the fused latency mode.
+  A staged prove or verify of B proofs with 0 < B <= `fuse_b_max` runs
+  its whole flow as one CUDA graph on the card, captured at the first call
+  of each signature and replayed after (`arguments/fused.py`); on CPU
+  tensors the same flow runs eagerly.
 - `stage_timing` (`MPTPU_STAGE_TIMING`, default off): each stage of the
   staged prove and verify is timed to a `torch.cuda.synchronize()` into
   `arguments/staged.py::STAGE_TIMES`, which `stage_report()` reads.
@@ -27,8 +32,8 @@ Only the knobs the port reads are kept:
   shuffle52 at (m, n) = (2, 4)): the port's bench
   (`python -m mental_poker_tpu_torch.bench`), as in the JAX package.
 
-The JAX package's TPU knobs (`pallas`, `pallas_msm`, `fuse_b_max`, the
-`sol_*` harness, `cache_dir`) have nothing to select here, nor has the dry
+The JAX package's TPU knobs (`pallas`, `pallas_msm`, the `sol_*` harness,
+`cache_dir`) have nothing to select here, nor has the dry
 run's time budget (`dryrun_budget_s`), which would skip a tier. Its
 per-game `ProtocolConfig` is not kept either: the port's callers take the
 curve, (m, n) and the batch as arguments.
@@ -56,6 +61,7 @@ class RuntimeConfig:
 
     msm_nc: int = 1  # MPTPU_MSM_NC
     fixed_window_bits: int = 4  # MPTPU_FIXED_WINDOW (the bench sets 8)
+    fuse_b_max: int = 0  # MPTPU_FUSE_B: batches <= this run the whole flow as one CUDA graph
     stage_timing: bool = False  # MPTPU_STAGE_TIMING
     profile_dir: str | None = None  # MPTPU_PROFILE (torch.profiler trace directory)
     bench_mode: str = "shuffle52"  # MPTPU_BENCH_MODE
@@ -69,6 +75,7 @@ class RuntimeConfig:
         return cls(
             msm_nc=int(os.environ.get("MPTPU_MSM_NC") or d.msm_nc),
             fixed_window_bits=int(os.environ.get("MPTPU_FIXED_WINDOW") or d.fixed_window_bits),
+            fuse_b_max=int(os.environ.get("MPTPU_FUSE_B", d.fuse_b_max)),
             stage_timing=bool(_env_bool("MPTPU_STAGE_TIMING", d.stage_timing)),
             profile_dir=os.environ.get("MPTPU_PROFILE") or None,
             bench_mode=os.environ.get("MPTPU_BENCH_MODE") or d.bench_mode,

@@ -71,7 +71,7 @@ def _g(a, b, c, d, mx, my):
     return a, b, c, d
 
 
-@functools.lru_cache(maxsize=64)
+@functools.cache
 def _consts(device: torch.device, t: int, last: bool):
     """Cached per device: the IV, the counter/flag row d for (t, last), and
     the message schedule as one flat index (round r, step j at 16r + 4j)."""
@@ -87,6 +87,19 @@ def _consts(device: torch.device, t: int, last: bool):
         device=device,
     )
     return iv, d, torch.as_tensor(_MSG_IDX.reshape(-1), device=device)
+
+
+@functools.cache
+def _blake2s_h0(device: torch.device) -> torch.Tensor:
+    """The initial state of an unkeyed 32-byte digest, cached per device."""
+    h0 = list(_BLAKE2S_IV)
+    h0[0] ^= 0x01010020  # digest length 32, fanout = depth = 1
+    return torch.tensor(h0, dtype=torch.int64, device=device)
+
+
+@functools.cache
+def _chacha_const(device: torch.device) -> torch.Tensor:
+    return torch.tensor(_CHACHA_CONST, dtype=torch.int64, device=device)
 
 
 def _compress(h, m, t: int, last: bool):
@@ -127,9 +140,7 @@ def blake2s(data_u8: torch.Tensor) -> torch.Tensor:
     if pad:
         data_u8 = torch.cat([data_u8, data_u8.new_zeros(batch + (pad,))], dim=-1)
     m = bytes_to_words(data_u8).reshape(batch + (nblocks, 16))
-    h0 = list(_BLAKE2S_IV)
-    h0[0] ^= 0x01010020  # digest length 32, fanout = depth = 1
-    h = torch.tensor(h0, dtype=torch.int64, device=data_u8.device).expand(batch + (8,))
+    h = _blake2s_h0(data_u8.device).expand(batch + (8,))
     for i in range(nblocks - 1):
         h = _compress(h, m[..., i, :], t=(i + 1) * 64, last=False)
     return _compress(h, m[..., nblocks - 1, :], t=nbytes, last=True)
@@ -147,7 +158,7 @@ def chacha20_block(key_words: torch.Tensor, counter: torch.Tensor) -> torch.Tens
     batch = torch.broadcast_shapes(key_words.shape[:-1], counter.shape)
     dev = key_words.device
     counter = counter.expand(batch)
-    const = torch.tensor(_CHACHA_CONST, dtype=torch.int64, device=dev).expand(batch + (4,))
+    const = _chacha_const(dev).expand(batch + (4,))
     zeros = counter.new_zeros(batch)
     tail = torch.stack([counter & M32, (counter >> 32) & M32, zeros, zeros], dim=-1)
     state = torch.cat([const, key_words.expand(batch + (8,)), tail], dim=-1)

@@ -9,6 +9,8 @@ x || y || infinity byte, and the identity writes 0 || 1 || 1.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 
@@ -51,9 +53,15 @@ def points_blob(cv, P) -> torch.Tensor:
     return pb if pb.dim() == 1 else pb.flatten(-2)
 
 
+@functools.cache
+def _bytes_tensor(data: bytes, device: torch.device) -> torch.Tensor:
+    return torch.tensor(list(data), dtype=torch.uint8, device=device)
+
+
 def const_bytes(data: bytes, batch_shape: tuple = (), device="cuda") -> torch.Tensor:
-    """Static bytes as a (broadcast) uint8 tensor."""
-    arr = torch.tensor(list(data), dtype=torch.uint8, device=device)
+    """Static bytes as a (broadcast) uint8 tensor, copied to the device once
+    per value and device."""
+    arr = _bytes_tensor(bytes(data), torch.device(device))
     return arr.expand(tuple(batch_shape) + arr.shape)
 
 

@@ -12,10 +12,19 @@ semantics, bit-exact with the host `crypto/transcript.py`).
 
 Every lane of a batch is an independent transcript: a rejected lane draws
 again from its own stream while accepted lanes stop consuming words.
+
+``sample_field_once`` is the draw of the fused latency mode
+(`arguments/fused.py`): one round of `FUSED_CANDIDATES` candidates and no
+host sync, so that a CUDA graph can hold it. A lane advances to its first
+accepted candidate, as the loop's does, so the two give the same values
+and positions wherever every lane accepts within the round; a lane that
+does not is reported undone, and its caller runs the draw again the loop's
+way.
 """
 
 from __future__ import annotations
 
+import functools
 import hashlib
 from typing import NamedTuple
 
@@ -28,6 +37,10 @@ from .hash_dev import blake2s, chacha20_words, words_to_bytes
 # consecutive draws of every lane at once and keeps the first accepted one,
 # which is exactly where the one-draw-at-a-time loop would stop.
 CANDIDATES = 8
+# Candidates of `sample_field_once`'s single round. A Stark Fr draw is
+# accepted with probability about 1/2, so a lane misses all 64 with
+# probability about 2^-64.
+FUSED_CANDIDATES = 64
 
 
 class DTState(NamedTuple):
@@ -35,10 +48,16 @@ class DTState(NamedTuple):
     widx: torch.Tensor  # int64 [...] keystream word position
 
 
-def init(seed_bytes: bytes, batch_shape: tuple = (), device="cuda") -> DTState:
-    """Transcript from a domain-separation seed (digest taken on the host)."""
+@functools.cache
+def _seed_words(seed_bytes: bytes, device: torch.device) -> torch.Tensor:
     words = np.frombuffer(hashlib.blake2s(seed_bytes).digest(), dtype="<u4").astype(np.int64)
-    seed = torch.as_tensor(words, device=device).expand(tuple(batch_shape) + (8,))
+    return torch.as_tensor(words, device=device)
+
+
+def init(seed_bytes: bytes, batch_shape: tuple = (), device="cuda") -> DTState:
+    """Transcript from a domain-separation seed (digest taken on the host
+    once per seed and device)."""
+    seed = _seed_words(seed_bytes, torch.device(device)).expand(tuple(batch_shape) + (8,))
     return DTState(seed, torch.zeros(tuple(batch_shape), dtype=torch.int64, device=device))
 
 
@@ -70,32 +89,46 @@ def _words_to_limbs(words: torch.Tensor) -> torch.Tensor:
     return limbs.flatten(-2).to(torch.int32)
 
 
+def _draw(seed: torch.Tensor, widx: torch.Tensor, fld, K: int):
+    """K consecutive candidate draws of every lane from word `widx` ->
+    (the first accepted value [..., L], whether a draw was accepted [...],
+    the words consumed [...]: up to and including the accepted draw, or
+    all K draws' when none was)."""
+    nw, hi_mask = _uniform_spec(fld)
+    bshape = widx.shape
+    words = chacha20_words(seed, widx, nw * K).reshape(bshape + (K, nw)).clone()
+    words[..., nw - 1] &= hi_mask
+    cand = _words_to_limbs(words)  # [..., K, L]
+    ok = fld.canonical_lt(cand, fld.const("p_limbs", widx.device))  # [..., K]
+    # first accepted candidate per lane (K where none is)
+    first = torch.where(ok, torch.arange(K, device=widx.device), K).min(dim=-1).values
+    found = first < K
+    pick = torch.gather(cand, -2, first.clamp(max=K - 1)[..., None, None].expand(bshape + (1, fld.L)))
+    return pick[..., 0, :], found, torch.where(found, (first + 1) * nw, K * nw)
+
+
 def sample_field(state: DTState, fld):
     """-> (state', Montgomery-form limbs int32 [..., L])."""
-    nw, hi_mask = _uniform_spec(fld)
     bshape = state.widx.shape
-    dev = state.widx.device
-    p = fld.const("p_limbs", dev)
     widx = state.widx
-    out = torch.zeros(bshape + (fld.L,), dtype=torch.int32, device=dev)
-    done = torch.zeros(bshape, dtype=torch.bool, device=dev)
-    steps = torch.arange(CANDIDATES, device=dev)
+    out = torch.zeros(bshape + (fld.L,), dtype=torch.int32, device=widx.device)
+    done = torch.zeros(bshape, dtype=torch.bool, device=widx.device)
     while True:
-        words = chacha20_words(state.seed, widx, nw * CANDIDATES)
-        words = words.reshape(bshape + (CANDIDATES, nw)).clone()
-        words[..., nw - 1] &= hi_mask
-        cand = _words_to_limbs(words)  # [..., K, L]
-        ok = fld.canonical_lt(cand, p)  # [..., K]
-        # first accepted candidate per lane (K where none is)
-        first = torch.where(ok, steps, CANDIDATES).min(dim=-1).values
-        found = ~done & (first < CANDIDATES)
-        pick = torch.gather(cand, -2, first.clamp(max=CANDIDATES - 1)[..., None, None].expand(bshape + (1, fld.L)))
-        out = torch.where(found[..., None], pick[..., 0, :], out)
-        adv = torch.where(found, (first + 1) * nw, CANDIDATES * nw)
+        pick, found, adv = _draw(state.seed, widx, fld, CANDIDATES)
+        found = ~done & found
+        out = torch.where(found[..., None], pick, out)
         widx = torch.where(done, widx, widx + adv)
         done = done | found
         if bool(done.all()):
             return DTState(state.seed, widx), out
+
+
+def sample_field_once(state: DTState, fld):
+    """One round of `FUSED_CANDIDATES` draws, no host sync -> (state',
+    Montgomery-form limbs int32 [..., L], undone bool [...]). Where a lane
+    is undone its value and position are not `sample_field`'s."""
+    pick, found, adv = _draw(state.seed, state.widx, fld, FUSED_CANDIDATES)
+    return DTState(state.seed, state.widx + adv), pick, ~found
 
 
 def sample_fields(state: DTState, fld, k: int):

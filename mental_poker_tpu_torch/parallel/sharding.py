@@ -36,6 +36,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from ..arguments.device import leaves, rebuild, tree_map
 from ..crypto import elgamal
 from ..crypto.elgamal import Ciphertexts
 from ..ops import msm as msm_mod
@@ -47,36 +48,12 @@ DIMS = ("dp", "sp")
 
 
 # --------------------------------------------------------------- trees
-def leaves(tree) -> list:
-    if isinstance(tree, tuple):
-        return [leaf for t in tree for leaf in leaves(t)]
-    return [tree]
-
-
-def _rebuild(template, flat):
-    it = iter(flat)
-
-    def go(t):
-        if isinstance(t, tuple):
-            parts = [go(c) for c in t]
-            return type(t)(*parts) if hasattr(t, "_fields") else tuple(parts)
-        return next(it)
-
-    return go(template)
-
-
-def tree_map(fn, tree):
-    """fn over every tensor of a tree of tuples and NamedTuples (or one
-    tensor)."""
-    return _rebuild(tree, [fn(t) for t in leaves(tree)])
-
-
 def stack_trees(trees: list):
     """Trees of one structure -> one tree whose leaves are stacked on a new
     leading axis in list order: what `all_gather_tree` gives a rank, made
     in one process from every rank's local result."""
     cols = zip(*(leaves(t) for t in trees))
-    return _rebuild(trees[0], [torch.stack(c) for c in cols])
+    return rebuild(trees[0], [torch.stack(c) for c in cols])
 
 
 # ---------------------------------------------------------------- mesh
@@ -162,7 +139,7 @@ def _gather_one(mesh, dim: str, tree):
     for t in flat_leaves:
         parts.append(out[:, lo : lo + t.numel()].reshape((D,) + t.shape).to(t.dtype))
         lo += t.numel()
-    return _rebuild(tree, parts)
+    return rebuild(tree, parts)
 
 
 def all_gather_tree(mesh, dims, tree):

@@ -65,7 +65,7 @@ def test_multigame_flow_small():
 
 def test_msm_mode_result():
     res = json.loads(json.dumps(bench.bench_msm(reps=1, npts=8, device="cpu")))
-    assert set(res) == {"metric", "value", "unit", "vs_baseline", "runs_s", "stage_timing", "device"}
+    assert set(res) == {"metric", "value", "unit", "vs_baseline", "runs_s", "stage_timing", "fuse_b_max", "device"}
     assert res["metric"] == "torch_msm_8_points_per_s" and res["unit"] == "points/s/chip"
     assert len(res["runs_s"]) == 1 and res["value"] > 0 and res["device"] == "cpu"
     assert res["vs_baseline"] == round(res["value"] / bench.ARKWORKS_CPU_MSM_POINTS_PER_S, 4)
@@ -249,11 +249,14 @@ def test_report_precedes_the_traced_run(tmp_path, capsys, reps, traced):
 @pytest.mark.parametrize("timing", [False, True], ids=["timing_off", "timing_on"])
 def test_result_records_stage_timing(timing):
     """The JSON line says whether its runs synchronized after every stage,
-    beside `bench.py`'s fields."""
-    with config.override(stage_timing=timing):
+    and up to which batch they ran fused (`fuse_b_max`), beside `bench.py`'s
+    fields."""
+    fuse_b_max = 1 if timing else 0
+    with config.override(stage_timing=timing, fuse_b_max=fuse_b_max):
         res = bench.result("m", 4, [0.5, 1.5], "u", 2.0, 3, "cpu")
     assert json.loads(json.dumps(res)) == {"metric": "m", "value": 4.0, "unit": "u", "vs_baseline": 2.0,
-                                           "runs_s": [0.5, 1.5], "stage_timing": timing, "device": "cpu"}
+                                           "runs_s": [0.5, 1.5], "stage_timing": timing,
+                                           "fuse_b_max": fuse_b_max, "device": "cpu"}
 
 
 @pytest.mark.slow

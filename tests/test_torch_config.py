@@ -71,14 +71,15 @@ def test_knob_consumers_route_through_config(monkeypatch):
     assert seen == [4]
 
 
-# The five knobs of the eighth slice: (field, variable, a value to set, the
-# parsed value).
+# The five knobs of the eighth slice and the ninth's fused latency mode:
+# (field, variable, a value to set, the parsed value).
 NEW_KNOBS = [
     ("stage_timing", "MPTPU_STAGE_TIMING", "1", True),
     ("profile_dir", "MPTPU_PROFILE", "/tmp/trace", "/tmp/trace"),
     ("bench_reps", "MPTPU_BENCH_REPS", "5", 5),
     ("bench_batch", "MPTPU_BENCH_BATCH", "1", 1),
     ("bench_smoke", "MPTPU_BENCH_SMOKE", "true", True),
+    ("fuse_b_max", "MPTPU_FUSE_B", "4", 4),
 ]
 
 

@@ -1,4 +1,6 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+"""The port's CUDA kernels against their plain PyTorch versions, on the card,
+and the fused latency mode (`arguments/fused.py`): B = 1 proofs replayed
+from CUDA graphs against the staged flow.
 
 Marked `cuda`: each test decides inside a fixture whether a card is present
 and skips otherwise. On a machine with a card and nvcc:
@@ -12,11 +14,16 @@ import numpy as np
 import pytest
 import torch
 
+from mental_poker_tpu_torch import config, params
+from mental_poker_tpu_torch.arguments import device_api, fused
+from mental_poker_tpu_torch.arguments.device import leaves
+from mental_poker_tpu_torch.crypto import elgamal
+from mental_poker_tpu_torch.crypto.elgamal import Ciphertexts
 from mental_poker_tpu_torch.ops import field as tfield
 from mental_poker_tpu_torch.ops.cuda import curve as cuda_curve
 from mental_poker_tpu_torch.ops.cuda import field as cuda_field
 from mental_poker_tpu_torch.ops.cuda import msm as cuda_msm
-from mental_poker_tpu_torch.ops.curve import PointP, bls12_377_g1, stark_curve
+from mental_poker_tpu_torch.ops.curve import PointP, bls12_377_g1, map_point, stark_curve
 from mental_poker_tpu_torch.ops.msm import FixedBaseTable
 from mental_poker_tpu_torch.utils.rand import GameRng, ints_to_limbs
 
@@ -155,3 +162,60 @@ def test_msm_chunked_kernel_equals_plain(dev, curve, S, N, nc):
     if N > cuda_msm.CHUNK_MAX:  # above the kernel's maximum both versions run CHUNK_MAX points a step
         got = cuda_msm.msm_chunked(cv, P, k, N)
         assert all(torch.equal(g, w) for g, w in zip(got, cuda_msm.msm_chunked_plain(cv, P, k, cuda_msm.CHUNK_MAX)))
+
+
+def _shuffle_statement(dev, g, seed):
+    """One deck of `g`'s shape at B = 1 (random cards c0 = a G, c1 = b G),
+    its permutation, remask factors, shuffled deck and prover randomness."""
+    cv, N = g.cv, g.m * g.n
+    q, L = cv.host.order, cv.fr.L
+    r = GameRng(seed)
+    ab = torch.as_tensor(r.scalar_limbs(q, (2, 1, N), L).astype(np.int32), device=dev)
+    deck = Ciphertexts(g.enc.gen_table.mul(ab[0]), g.enc.gen_table.mul(ab[1]))
+    pi = torch.as_tensor(r.permutation(N).astype(np.int64), device=dev)[None]
+    rho = torch.as_tensor(r.scalar_limbs(q, (1, N), L).astype(np.int32), device=dev)
+    permuted = Ciphertexts(*(map_point(lambda t: torch.gather(t, 1, pi[..., None].expand(t.shape)), c) for c in deck))
+    shuffled = elgamal.cipher_add(cv, permuted, elgamal.encrypt_zero(g.enc, g.agg_table, rho))
+    rand = device_api.sample_shuffle_rand(r, g.m, g.n, L, q, batch=1, device=dev)
+    return deck, shuffled, pi, rho, rand
+
+
+def _fused_and_staged(g, stmt):
+    """The statement's proof and flags through the fused flow (a CUDA graph,
+    `fuse_b_max` = 1) and through the staged flow."""
+    out = []
+    for fuse_b_max in (1, 0):
+        with config.override(fuse_b_max=fuse_b_max, msm_nc=1):
+            proof = device_api.prove_shuffle(g.cv, g.m, g.n, g.keys, *stmt)
+            checks = device_api.verify_shuffle(g.cv, g.m, g.n, g.keys, *stmt[:2], proof)
+        out.append((proof, checks))
+    return out
+
+
+def _leaves_equal(a, b) -> bool:
+    return len(leaves(a)) == len(leaves(b)) and all(torch.equal(x, y) for x, y in zip(leaves(a), leaves(b)))
+
+
+def test_fused_b1_equals_staged(dev):
+    """(2, 4), B = 1: the proof replayed from the captured graph equals the
+    staged proof leaf for leaf, and both flows accept it."""
+    g = params.setup(GameRng(31), 2, 4, c=4, device=dev)
+    (fproof, fchecks), (sproof, schecks) = _fused_and_staged(g, _shuffle_statement(dev, g, 32))
+    assert _leaves_equal(fproof, sproof)
+    assert all(bool(c.all()) for c in (*fchecks, *schecks))
+    assert any(key[:4] == ("fused_prove", g.cv.name, 2, 4) for key in fused.GRAPHS)
+
+
+def test_fused_second_statement_keeps_first_proof(dev):
+    """A second game (another aggregate key and deck) through the same
+    graphs gets its own proof, the staged one, and the first call's proof
+    is unchanged by it."""
+    g1 = params.setup(GameRng(41), 2, 4, c=4, device=dev)
+    g2 = params.setup(GameRng(43), 2, 4, c=4, device=dev)
+    (first, _), (first_staged, _) = _fused_and_staged(g1, _shuffle_statement(dev, g1, 42))
+    kept = [t.clone() for t in leaves(first)]
+    (second, checks), (second_staged, _) = _fused_and_staged(g2, _shuffle_statement(dev, g2, 44))
+    assert _leaves_equal(second, second_staged) and not _leaves_equal(second, first)
+    assert all(bool(c.all()) for c in checks)
+    assert all(torch.equal(a, b) for a, b in zip(leaves(first), kept))
+    assert _leaves_equal(first, first_staged)

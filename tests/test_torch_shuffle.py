@@ -15,6 +15,7 @@ traces the JAX prover and verifier (about three minutes), recomputes the
 pins, and has the JAX verifier accept the port's proof.
 """
 
+import functools
 import hashlib
 
 import numpy as np
@@ -61,10 +62,13 @@ def sha256(arrays) -> str:
     return h.hexdigest()
 
 
+@functools.cache
 def _port_statement():
     """`tests/test_determinism.py::_setup` in the port: parameters, the
     aggregate key, a deck and its permute+remask (4-bit tables, the JAX
-    default), batched [1, N]; and the shuffle keys."""
+    default), batched [1, N]; and the shuffle keys. Made once a process
+    (`tests/test_torch_fused.py` proves the same statement); no caller
+    changes its tensors."""
     proto = DLCards(device="cpu", c=4)
     rng = GameRng(1234)
     pp = proto.setup(rng, M, N_COLS)
