@@ -25,6 +25,7 @@ Tolerance: exact equality of the hashed limbs.
 
 import hashlib
 import json
+import os
 
 import numpy as np
 import pytest
@@ -99,6 +100,9 @@ def test_main_passes_config_knobs(monkeypatch, capsys, env, want):
         assert config.get_config().fixed_window_bits == 8  # the bench's window
         assert json.loads(capsys.readouterr().out) == {"metric": "stub"}
     finally:
+        # bench.main sets the bench's window in os.environ, past monkeypatch:
+        # left there, every later test of the worker would build 8-bit tables.
+        os.environ.pop("MPTPU_FIXED_WINDOW", None)
         config.set_config(None)
 
 
