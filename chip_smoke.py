@@ -77,6 +77,11 @@ Phases (every failure exits non-zero; nothing is caught and ignored):
    and one 1,024-card deck at (16, 64) proved and verified (a tampered deck
    rejected), with the per-statement MSM kernel held against its plain
    version at every shape it ran at there that phase 2c did not compare.
+   7b (`hash_phase`): the transcript kernels, Blake2s and the ChaCha20 draw
+   (`csrc/hash.cu`), held against their plain versions at every shape
+   phase 3 (B=128, B=1) and the multigame flow launched them at, and at
+   the benchmark cells' shapes (`HASH_CELLS`, printed by cell); their
+   launch counts sit in the kernels' JSON line.
 8. The parallel layer (`mental_poker_tpu_torch/parallel/`, seventh slice;
    `parallel_phase`): at world size 1 on NCCL, the path alone with its
    launch counts read around it (the sharded remask, deck MSM, window MSM,
@@ -108,8 +113,9 @@ Phases (every failure exits non-zero; nothing is caught and ignored):
    `msm_nc = 1`: the fused proof equal to phase 3's B=1 proof leaf for
    leaf, every flag true, phase 3's tampered deck rejected; each graph's
    capture time, the kernel launches its capture recorded (equal to phase
-   3's B=1 counts), the median of five replayed prove+verify beside phase
-   3's staged B=1 median, one replay traced (device-busy ms, idle share)
+   3's B=1 counts; a draw one launch, where the staged draw loops), the
+   median of five replayed prove+verify beside phase 3's staged B=1
+   median, one replay traced (device-busy ms, idle share)
    and `FUSED_MISSES`. (b) A second statement (another seed and aggregate
    key) through the same graphs equal to its staged proof, (a)'s proof
    unchanged. (c) B = 4 with `fuse_b_max = 4` equal to staged B = 4. (d)
@@ -117,7 +123,8 @@ Phases (every failure exits non-zero; nothing is caught and ignored):
    inside a graph. (e) `play_round(seed=7, m=2, n=26)` fused, its cards
    phase 5's. (f) `bench.main()` at `MPTPU_BENCH_BATCH=1` with
    `MPTPU_FUSE_B=1`. Every launch at a shape no earlier phase compared is
-   held against its plain version.
+   held against its plain version; the B=1 capture's transcript-kernel
+   shapes must be the ones phase 7b compared for `shuffle52.table`.
 
 Every phase runs with `msm_nc = 1` (the per-statement MSM kernel) unless it
 says otherwise, whatever `MPTPU_MSM_NC` holds.
@@ -164,6 +171,7 @@ DBL_PRODUCTS = 13
 GROUP_CHAIN_PRODUCTS = 3
 
 STAGED_KERNELS = ("mont_mul", "point_add", "msm_lanes")  # the staged flow's kernels at nc = 1
+HASH_KERNELS = ("blake2s", "chacha_draw")  # the transcript's kernels (csrc/hash.cu), every flow
 CHUNKED_KERNELS = ("mont_mul", "point_add", "msm_chunked", "fold_windows")  # ... and at nc = 8
 NC = 8  # points per step of the chunked MSM on its paths
 BATCH = 128  # decks per prove+verify batch, as bench.py's shuffle52 mode
@@ -522,8 +530,10 @@ def main() -> int:
     log(f"first prove+verify at B={B}: {time.perf_counter() - t0:.2f} s")
 
     cuda_ops.reset_launches()
+    hash_seen = {flow: set() for flow in ("staged", "b1", "fused")}  # phase 7b's shapes, by flow
     t0 = time.perf_counter()
-    proof, checks = prove_verify(data)
+    with hash_shapes(hash_seen["staged"]):
+        proof, checks = prove_verify(data)
     first_ms = (time.perf_counter() - t0) * 1e3
     launches = dict(cuda_ops.LAUNCHES)
     ok = [bool(c.all()) for c in checks]
@@ -600,7 +610,8 @@ def main() -> int:
     prove_verify(data1)
     cuda_ops.reset_launches()
     t0 = time.perf_counter()
-    proof1, checks1 = prove_verify(data1)
+    with hash_shapes(hash_seen["b1"]):
+        proof1, checks1 = prove_verify(data1)
     times1 = [(time.perf_counter() - t0) * 1e3]
     launches1 = dict(cuda_ops.LAUNCHES)
     if not all(bool(c.all()) for c in checks1):
@@ -610,6 +621,9 @@ def main() -> int:
         if launches1[k] <= 0:
             raise AssertionError(f"kernel {k} was not launched on the B=1 path")
         kernels[k]["launches_b1"] = launches1[k]
+    for k in HASH_KERNELS:
+        require(launches[k] > 0 and launches1[k] > 0, f"the staged flow did not launch {k}")
+        kernels[k] = dict(launches=launches[k], launches_b1=launches1[k])
     for _ in range(REPS - 1):
         t0 = time.perf_counter()
         prove_verify(data1)
@@ -739,6 +753,9 @@ def main() -> int:
     for k in kernels:
         kernels[k]["launches_multigame"] = multigame["launches"][k]
         kernels[k]["launches_deck1024"] = deck1024["launches"][k]
+    # 7b. the transcript kernels at the flows' and the benchmark cells' shapes
+    hash_seen["game"] = set(multigame.pop("hash_shapes"))
+    hash7 = hash_phase(dev, hash_seen)
 
     # --------------------------------------------------- 8. the parallel layer
     bls_name = bls12_377_g1().host.name
@@ -762,10 +779,14 @@ def main() -> int:
     # ------------------------------------------- 10. the fused latency mode
     seen9 = bench9.pop("seen")  # phase 9 held each of these against plain
     fused10 = fused_phase(dev, g, data, data1, proof1, bad, launches1, pv1_ms, (round_s, round_opened),
-                          {k: compared9[k] | seen9[k] for k in compared9})
+                          {k: compared9[k] | seen9[k] for k in compared9}, hash_seen["fused"])
     for k in kernels:
         kernels[k]["launches_fused"] = fused10["launches"][k]
         kernels[k]["launches_fused_nc8"] = fused10["launches_nc8"][k]
+
+    require(hash_seen["fused"] == hash7.pop("table_shapes"),
+            f"the fused B=1 capture launched the transcript kernels at {sorted(hash_seen['fused'])}, "
+            f"not at the shapes phase 7b compared for shuffle52.table")
 
     meta = {
         "mont_mul": ("mental_poker_tpu_torch/csrc/field.cu", "mental_poker_tpu/ops/pallas/field.py:128"),
@@ -789,6 +810,9 @@ def main() -> int:
             "plain_ms": kv["plain_ms"], "bound_ms": kv["bound_ms"], "bound_by": kv["bound_by"],
             "library_ms": None, **{k: kv[k] for k in extra if k in kv},
         })
+    for kname in HASH_KERNELS:  # replace no Pallas kernel (jnp code in hash_jax.py)
+        rows.append({"name": kname, "route": "cuda", "source": "mental_poker_tpu_torch/csrc/hash.cu",
+                     "replaces": None, "max_abs_err": 0, **kernels[kname], **hash7[kname]})
     log(json.dumps({"prove_verify": {f"B={B}": {"ms": pv_ms, "pairs_per_s": B / pv_ms * 1e3},
                                      f"B={B}, msm_nc={NC}": {"ms": pv8_ms, "pairs_per_s": B / pv8_ms * 1e3},
                                      "B=1": {"ms": pv1_ms, "pairs_per_s": 1e3 / pv1_ms}},
@@ -1427,7 +1451,8 @@ def multigame_phase(dev, g, elementwise_compared: set, profile_dir=None, G=64, P
     cuda_ops.reset_launches()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    with elementwise_lanes(lanes):
+    hashed = set()
+    with elementwise_lanes(lanes), hash_shapes(hashed):
         out = bench.multigame_flow(mg)
         torch.cuda.synchronize()
     counted_s = time.perf_counter() - t0
@@ -1497,7 +1522,104 @@ def multigame_phase(dev, g, elementwise_compared: set, profile_dir=None, G=64, P
     require(not diff and len(small[0]) == 21, f"the card's small multigame proofs differ from the CPU's at {diff}")
     log(f"multigame G=2, P=3, (2, 2): the card's proofs equal the CPU plain versions' ({len(small[0])} tensors)")
     return dict(games_per_s=G / med, runs_s=runs, counted_flow_s=counted_s, peak_memory_bytes=peak,
-                reveal_statements=M, elementwise_lanes=sorted(lanes), launches=launches, **trace)
+                reveal_statements=M, elementwise_lanes=sorted(lanes), launches=launches, hash_shapes=sorted(hashed),
+                **trace)
+
+
+# Phase 7b: the lanes of every transcript-kernel launch scale with the batch
+# (one lane a deck, card, Merkle node or statement), so the recorded flows'
+# shapes give the benchmark cells' shapes: phase 3's staged B = 1 prove+verify
+# is `shuffle52.table`'s fused B = 1 one with every draw one round of
+# `FUSED_CANDIDATES` (phase 10 requires its capture to launch exactly these),
+# and `shuffle52.batch` (fused B = 1,024) at 1,024 times the lanes; phase 7a's
+# G = 64 games are `game8p.batch` at G = 2,048 (32 times the lanes).
+HASH_CELLS = {"shuffle52.table": ("b1", 1), "shuffle52.batch": ("b1", 1024), "game8p.batch": ("game", 32)}
+
+
+@contextlib.contextmanager
+def hash_shapes(seen: set):
+    """Record in `seen` a key for every launch of the transcript kernels
+    made inside the block: ("blake2s", lanes, message bytes, with the seed
+    suffix, bytes out) and ("chacha_draw", lanes, field, K)."""
+    from mental_poker_tpu_torch.ops import field as field_mod
+    from mental_poker_tpu_torch.ops.cuda import hash as cuda_hash
+
+    names = {f.p: f.name for f in (field_mod.stark_fr(), field_mod.bls12_377_fr(), field_mod.bls12_377_fq())}
+    blake2s, chacha_draw = cuda_hash.blake2s, cuda_hash.chacha_draw
+
+    def blake2s_recording(data_u8, suffix_words=None, out_bytes=False):
+        out = blake2s(data_u8, suffix_words, out_bytes)
+        if out.numel():
+            seen.add(("blake2s", out.numel() // out.shape[-1], data_u8.shape[-1], suffix_words is not None, out_bytes))
+        return out
+
+    def chacha_draw_recording(seed, widx, p, nw, hi_mask, K):
+        if widx.numel():
+            seen.add(("chacha_draw", widx.numel(), names[p], K))
+        return chacha_draw(seed, widx, p, nw, hi_mask, K)
+
+    cuda_hash.blake2s, cuda_hash.chacha_draw = blake2s_recording, chacha_draw_recording
+    try:
+        yield seen
+    finally:
+        cuda_hash.blake2s, cuda_hash.chacha_draw = blake2s, chacha_draw
+
+
+def hash_check(dev, key, seed: int) -> None:
+    """The transcript kernel of `key` (`hash_shapes`) against its plain
+    version on the card at that shape, bit for bit: uniform message bytes
+    and seed words; for a draw, uniform keys and start words below 4,096."""
+    import numpy as np
+    import torch
+
+    from mental_poker_tpu_torch.crypto import hash_dev, transcript_dev
+    from mental_poker_tpu_torch.ops import field as field_mod
+    from mental_poker_tpu_torch.ops.cuda import hash as cuda_hash
+
+    npr = np.random.default_rng(seed)
+    kind, lanes = key[:2]
+    words = lambda shape: torch.as_tensor(npr.integers(0, 2**32, size=shape, dtype=np.int64), device=dev)
+    if kind == "blake2s":
+        _, _, n, suffix, out_bytes = key
+        data = torch.as_tensor(npr.integers(0, 256, size=(lanes, n), dtype=np.uint8), device=dev)
+        sfx = words((lanes, 8)) if suffix else None
+        want = hash_dev.blake2s_plain(data, sfx)
+        got = [cuda_hash.blake2s(data, sfx, out_bytes)]
+        want = [hash_dev.words_to_bytes(want) if out_bytes else want]
+    else:
+        _, _, fname, K = key
+        fld = getattr(field_mod, fname)()
+        keys, widx = words((lanes, 8)), torch.as_tensor(npr.integers(0, 4096, size=lanes), device=dev)
+        got = transcript_dev._draw(keys, widx, fld, K)
+        want = transcript_dev._draw_plain(keys, widx, fld, K)
+    torch.cuda.synchronize()
+    require(all(torch.equal(a, b) for a, b in zip(got, want)), f"{key}: the kernel differs from its plain version")
+
+
+def hash_phase(dev, seen: dict) -> dict:
+    """7b. The transcript kernels (`csrc/hash.cu`) against their plain
+    versions (`hash_check`) at every shape the flows launched them at
+    (`seen`, by flow: phase 3's staged B = 128 ("staged") and B = 1 ("b1"),
+    phase 7a's multigame ("game")) and at the benchmark cells' shapes
+    (`HASH_CELLS`, each cell's printed). Returns, by kernel, the number of
+    shapes compared, and `table_shapes`: the keys of `shuffle52.table` (a
+    fused B = 1 prove+verify)."""
+    from mental_poker_tpu_torch.crypto.transcript_dev import FUSED_CANDIDATES
+
+    t0 = time.perf_counter()
+    fused = lambda key: key[:3] + (FUSED_CANDIDATES,) if key[0] == "chacha_draw" else key
+    cells = {}
+    for cell, (flow, scale) in HASH_CELLS.items():
+        cells[cell] = sorted((k[0], k[1] * scale) + k[2:] for k in map(fused if flow == "b1" else tuple, seen[flow]))
+        log(f"hash {cell}: {cells[cell]}")
+    todo = sorted(set().union(*seen.values(), *cells.values()), key=lambda k: k[:2])
+    for i, key in enumerate(todo):
+        hash_check(dev, key, 1301 + i)
+    out = {k: dict(shapes_compared=sum(key[0] == k for key in todo)) for k in HASH_KERNELS}
+    log(f"hash: both kernels equal to plain at {len(todo)} shapes "
+        f"({ {k: v['shapes_compared'] for k, v in out.items()} }; {time.perf_counter() - t0:.1f} s)")
+    out["table_shapes"] = set(cells["shuffle52.table"])
+    return out
 
 
 def msm1024_phase(dev, npts=1024) -> dict:
@@ -2058,7 +2180,8 @@ def bench_phase(dev, g, data, proof, prove_verify, compared: dict, pv_ms: float,
     return dict(out, launches=launches, new_shapes={k_: len(v) for k_, v in new.items()}, seen=seen)
 
 
-def fused_phase(dev, g, data, data1, proof1, bad, launches1, pv1_ms, round5, compared: dict, reps: int = REPS) -> dict:
+def fused_phase(dev, g, data, data1, proof1, bad, launches1, pv1_ms, round5, compared: dict, hash_seen: set,
+                reps: int = REPS) -> dict:
     """10. The fused latency mode (`arguments/fused.py`, ninth slice) on the
     main path at full width: Stark, (2, 26), window-8 tables (`g`, phase
     3's), the kernels' launch shapes recorded throughout.
@@ -2081,7 +2204,8 @@ def fused_phase(dev, g, data, data1, proof1, bad, launches1, pv1_ms, round5, com
     cards of phase 5d (`round5`: its seconds and cards). (f) `bench.main()`
     with `MPTPU_BENCH_BATCH=1`, `MPTPU_FUSE_B=1`: its JSON line, with
     `fuse_b_max` 1. `FUSED_MISSES` is printed. Last, every launch at a
-    shape `compared` does not hold against its kernel's plain version."""
+    shape `compared` does not hold against its kernel's plain version.
+    (a)'s captures record the transcript kernels' shapes in `hash_seen`."""
     import io
     import tempfile
 
@@ -2128,11 +2252,16 @@ def fused_phase(dev, g, data, data1, proof1, bad, launches1, pv1_ms, round5, com
         with config.override(fuse_b_max=1, msm_nc=1):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            (proof_f, checks_f), caps = captured(lambda: prove_verify(g, data1))
+            with hash_shapes(hash_seen):  # the transcript kernels' shapes in `shuffle52.table` (phase 11)
+                (proof_f, checks_f), caps = captured(lambda: prove_verify(g, data1))
             first_s = time.perf_counter() - t0
             require(sorted(caps) == ["fused_prove", "fused_verify"], f"captured {sorted(caps)}")
             cap_launches = {k: sum(c.launches[k] for c in caps.values()) for k in cuda_ops.LAUNCHES}
-            require(cap_launches == launches1, f"the captures launched {cap_launches}, phase 3's B=1 {launches1}")
+            # a staged draw loops until every lane accepted (K = 8 a round), a fused draw is one round
+            loops = {k: v for k, v in launches1.items() if k != "chacha_draw"}
+            require({k: cap_launches[k] for k in loops} == loops
+                    and 0 < cap_launches["chacha_draw"] <= launches1["chacha_draw"],
+                    f"the captures launched {cap_launches}, phase 3's B=1 {launches1}")
             require(same(proof_f, proof1), "the fused B=1 proof differs from phase 3's staged B=1 proof")
             require(all_true(checks_f), f"the fused verifier rejected an honest deck: {checks_f}")
             checks_bad = device_api.verify_shuffle(cv, m, n, g.keys, data1[0], bad, proof1)

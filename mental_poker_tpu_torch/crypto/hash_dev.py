@@ -2,11 +2,15 @@
 
 Counterpart of `mental_poker_tpu/crypto/hash_jax.py`: the Fiat-Shamir
 transcript (`crypto/transcript_dev.py`) and the deck Merkle root run on the
-device, batched over independent transcripts. 32-bit words are held in
-int64 tensors with values in [0, 2^32); every addition and rotation masks
-with 0xFFFFFFFF explicitly (PyTorch has no unsigned 32-bit arithmetic on the
-CPU). Rounds use the 4-lane formulation: a column step is elementwise over
-[..., 4] rows, a diagonal step rotates the rows first.
+device, batched over independent transcripts. 32-bit words are held in int64
+tensors with values in [0, 2^32); every addition and rotation masks with
+0xFFFFFFFF explicitly (PyTorch has no unsigned 32-bit arithmetic on the
+CPU). These PyTorch versions are the plain reference and run on CPU
+tensors; on CUDA tensors `blake2s` / `blake2s_bytes` launch the kernel of
+`ops/cuda/hash.py`, as the transcript's draw launches its ChaCha20 kernel
+(`chacha20_block` / `chacha20_words` are the plain draw's stream). Rounds
+use the 4-lane formulation: a column step is elementwise over [..., 4]
+rows, a diagonal step rotates the rows first.
 """
 
 from __future__ import annotations
@@ -15,6 +19,8 @@ import functools
 
 import numpy as np
 import torch
+
+from ..ops.cuda import hash as cuda_hash
 
 M32 = 0xFFFFFFFF
 
@@ -130,9 +136,16 @@ def words_to_bytes(words: torch.Tensor) -> torch.Tensor:
     return parts.reshape(words.shape[:-1] + (4 * words.shape[-1],)).to(torch.uint8)
 
 
-def blake2s(data_u8: torch.Tensor) -> torch.Tensor:
-    """Blake2s-256 of uint8 [..., n] (unkeyed, 32-byte digest), batched over
-    the leading dims -> int64 digest words [..., 8]."""
+def blake2s_plain(data_u8: torch.Tensor, suffix_words: torch.Tensor | None = None) -> torch.Tensor:
+    """Blake2s-256 of uint8 [..., n] (unkeyed, 32-byte digest), each row
+    followed by its `suffix_words` (int64 [..., 8], as 32 little-endian
+    bytes) when given, batched over the broadcast leading dims -> int64
+    digest words [..., 8]. PyTorch ops on any device; `blake2s` takes it
+    for CPU tensors."""
+    if suffix_words is not None:
+        tail = words_to_bytes(suffix_words)
+        bshape = torch.broadcast_shapes(data_u8.shape[:-1], tail.shape[:-1])
+        data_u8 = torch.cat([data_u8.expand(bshape + data_u8.shape[-1:]), tail.expand(bshape + (32,))], dim=-1)
     nbytes = data_u8.shape[-1]
     batch = data_u8.shape[:-1]
     nblocks = max(1, -(-nbytes // 64))
@@ -146,9 +159,20 @@ def blake2s(data_u8: torch.Tensor) -> torch.Tensor:
     return _compress(h, m[..., nblocks - 1, :], t=nbytes, last=True)
 
 
+def blake2s(data_u8: torch.Tensor, suffix_words: torch.Tensor | None = None) -> torch.Tensor:
+    """`blake2s_plain`'s digest words: CPU tensors take the plain version,
+    CUDA tensors one launch of the kernel (`ops/cuda/hash.py`)."""
+    if data_u8.device.type == "cpu":
+        return blake2s_plain(data_u8, suffix_words)
+    return cuda_hash.blake2s(data_u8, suffix_words)
+
+
 def blake2s_bytes(data_u8: torch.Tensor) -> torch.Tensor:
-    """Blake2s digest as uint8 [..., 32]."""
-    return words_to_bytes(blake2s(data_u8))
+    """Blake2s digest as uint8 [..., 32] (on the card the kernel writes the
+    bytes itself)."""
+    if data_u8.device.type == "cpu":
+        return words_to_bytes(blake2s_plain(data_u8))
+    return cuda_hash.blake2s(data_u8, out_bytes=True)
 
 
 def chacha20_block(key_words: torch.Tensor, counter: torch.Tensor) -> torch.Tensor:

@@ -31,7 +31,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .hash_dev import blake2s, chacha20_words, words_to_bytes
+from ..ops.cuda import hash as cuda_hash
+from .hash_dev import blake2s, chacha20_words
 
 # Candidates drawn per rejection round: a round computes this many
 # consecutive draws of every lane at once and keeps the first accepted one,
@@ -64,13 +65,8 @@ def init(seed_bytes: bytes, batch_shape: tuple = (), device="cuda") -> DTState:
 def absorb(state: DTState, data_u8: torch.Tensor) -> DTState:
     """seed' = Blake2s(data || seed bytes); `data_u8` uint8 [..., n] with
     batch dims broadcastable against the state's."""
-    seed_bytes = words_to_bytes(state.seed)
-    bshape = torch.broadcast_shapes(data_u8.shape[:-1], seed_bytes.shape[:-1])
-    data = torch.cat(
-        [data_u8.expand(bshape + data_u8.shape[-1:]), seed_bytes.expand(bshape + (32,))], dim=-1
-    )
-    new_seed = blake2s(data)
-    return DTState(new_seed, torch.zeros(bshape, dtype=torch.int64, device=data.device))
+    new_seed = blake2s(data_u8, state.seed)
+    return DTState(new_seed, torch.zeros(new_seed.shape[:-1], dtype=torch.int64, device=new_seed.device))
 
 
 def _uniform_spec(fld):
@@ -89,11 +85,12 @@ def _words_to_limbs(words: torch.Tensor) -> torch.Tensor:
     return limbs.flatten(-2).to(torch.int32)
 
 
-def _draw(seed: torch.Tensor, widx: torch.Tensor, fld, K: int):
+def _draw_plain(seed: torch.Tensor, widx: torch.Tensor, fld, K: int):
     """K consecutive candidate draws of every lane from word `widx` ->
-    (the first accepted value [..., L], whether a draw was accepted [...],
-    the words consumed [...]: up to and including the accepted draw, or
-    all K draws' when none was)."""
+    (the first accepted value [..., L] (the last candidate where none is),
+    whether a draw was accepted [...], the words consumed [...]: up to and
+    including the accepted draw, or all K draws' when none was). PyTorch
+    ops on any device; `_draw` takes it for CPU tensors."""
     nw, hi_mask = _uniform_spec(fld)
     bshape = widx.shape
     words = chacha20_words(seed, widx, nw * K).reshape(bshape + (K, nw)).clone()
@@ -105,6 +102,15 @@ def _draw(seed: torch.Tensor, widx: torch.Tensor, fld, K: int):
     found = first < K
     pick = torch.gather(cand, -2, first.clamp(max=K - 1)[..., None, None].expand(bshape + (1, fld.L)))
     return pick[..., 0, :], found, torch.where(found, (first + 1) * nw, K * nw)
+
+
+def _draw(seed: torch.Tensor, widx: torch.Tensor, fld, K: int):
+    """`_draw_plain`'s three outputs: CPU tensors take the plain version,
+    CUDA tensors one launch of the draw kernel (`ops/cuda/hash.py`)."""
+    if widx.device.type == "cpu":
+        return _draw_plain(seed, widx, fld, K)
+    nw, hi_mask = _uniform_spec(fld)
+    return cuda_hash.chacha_draw(seed, widx, fld.p, nw, hi_mask, K)
 
 
 def sample_field(state: DTState, fld):

@@ -22,7 +22,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("field.cu", "curve.cu", "msm.cu", "msm_chunked.cu")
+SOURCES = ("field.cu", "curve.cu", "msm.cu", "msm_chunked.cu", "hash.cu")
 HEADERS = ("mont.cuh", "fold.cuh", "msm_table.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

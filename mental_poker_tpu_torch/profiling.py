@@ -26,6 +26,8 @@ KERNEL_FUNCTIONS = {
     "msm_lanes": ("msm_table_kernel", "msm_window_fold_kernel"),
     "fold_windows": ("fold_windows_kernel",),
     "msm_chunked": ("msm_chunked_window_kernel",),
+    "blake2s": ("blake2s_kernel",),
+    "chacha_draw": ("chacha_draw_kernel",),
 }
 
 

@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card,
 and the fused latency mode (`arguments/fused.py`): B = 1 proofs replayed
-from CUDA graphs against the staged flow.
+from CUDA graphs against the staged flow, and the card's fused and staged
+proofs against the CPU's plain path.
 
 Marked `cuda`: each test decides inside a fixture whether a card is present
 and skips otherwise. On a machine with a card and nvcc:
@@ -10,6 +11,8 @@ and skips otherwise. On a machine with a card and nvcc:
 Inputs are seeded; tolerance: exact equality of limbs.
 """
 
+import hashlib
+
 import numpy as np
 import pytest
 import torch
@@ -17,9 +20,10 @@ import torch
 from mental_poker_tpu_torch import config, params
 from mental_poker_tpu_torch.arguments import device_api, fused
 from mental_poker_tpu_torch.arguments.device import leaves
-from mental_poker_tpu_torch.crypto import elgamal
+from mental_poker_tpu_torch.crypto import elgamal, hash_dev, transcript_dev
 from mental_poker_tpu_torch.crypto.elgamal import Ciphertexts
 from mental_poker_tpu_torch.ops import field as tfield
+from mental_poker_tpu_torch.ops import cuda as cuda_ops
 from mental_poker_tpu_torch.ops.cuda import curve as cuda_curve
 from mental_poker_tpu_torch.ops.cuda import field as cuda_field
 from mental_poker_tpu_torch.ops.cuda import msm as cuda_msm
@@ -164,19 +168,19 @@ def test_msm_chunked_kernel_equals_plain(dev, curve, S, N, nc):
         assert all(torch.equal(g, w) for g, w in zip(got, cuda_msm.msm_chunked_plain(cv, P, k, cuda_msm.CHUNK_MAX)))
 
 
-def _shuffle_statement(dev, g, seed):
-    """One deck of `g`'s shape at B = 1 (random cards c0 = a G, c1 = b G),
-    its permutation, remask factors, shuffled deck and prover randomness."""
+def _shuffle_statement(dev, g, seed, B=1):
+    """B decks of `g`'s shape (random cards c0 = a G, c1 = b G), their
+    permutations, remask factors, shuffled decks and prover randomness."""
     cv, N = g.cv, g.m * g.n
     q, L = cv.host.order, cv.fr.L
     r = GameRng(seed)
-    ab = torch.as_tensor(r.scalar_limbs(q, (2, 1, N), L).astype(np.int32), device=dev)
+    ab = torch.as_tensor(r.scalar_limbs(q, (2, B, N), L).astype(np.int32), device=dev)
     deck = Ciphertexts(g.enc.gen_table.mul(ab[0]), g.enc.gen_table.mul(ab[1]))
-    pi = torch.as_tensor(r.permutation(N).astype(np.int64), device=dev)[None]
-    rho = torch.as_tensor(r.scalar_limbs(q, (1, N), L).astype(np.int32), device=dev)
+    pi = torch.as_tensor(np.stack([r.permutation(N) for _ in range(B)]).astype(np.int64), device=dev)
+    rho = torch.as_tensor(r.scalar_limbs(q, (B, N), L).astype(np.int32), device=dev)
     permuted = Ciphertexts(*(map_point(lambda t: torch.gather(t, 1, pi[..., None].expand(t.shape)), c) for c in deck))
     shuffled = elgamal.cipher_add(cv, permuted, elgamal.encrypt_zero(g.enc, g.agg_table, rho))
-    rand = device_api.sample_shuffle_rand(r, g.m, g.n, L, q, batch=1, device=dev)
+    rand = device_api.sample_shuffle_rand(r, g.m, g.n, L, q, batch=B, device=dev)
     return deck, shuffled, pi, rho, rand
 
 
@@ -219,3 +223,92 @@ def test_fused_second_statement_keeps_first_proof(dev):
     assert all(bool(c.all()) for c in checks)
     assert all(torch.equal(a, b) for a, b in zip(leaves(first), kept))
     assert _leaves_equal(first, first_staged)
+
+
+def _proof_bytes(proof) -> bytes:
+    return b"".join(t.cpu().contiguous().numpy().tobytes() for t in leaves(proof))
+
+
+@pytest.mark.parametrize("B", [1, 3])
+def test_card_proofs_equal_cpu_plain_proof(dev, B):
+    """(2, 4) at B = 1 and 3: the fused proof (a CUDA graph, the hash
+    kernels captured in it) and the staged proof on the card are byte for
+    byte the CPU plain path's proof of the same inputs and randomness, and
+    the card's verifier accepts both."""
+    cpu = torch.device("cpu")
+    gc = params.setup(GameRng(51), 2, 4, c=4, device=cpu)
+    want = _proof_bytes(device_api.prove_shuffle(gc.cv, 2, 4, gc.keys, *_shuffle_statement(cpu, gc, 52, B)))
+    g = params.setup(GameRng(51), 2, 4, c=4, device=dev)
+    stmt = _shuffle_statement(dev, g, 52, B)
+    cuda_ops.reset_launches()
+    for fuse_b_max in (B, 0):
+        with config.override(fuse_b_max=fuse_b_max, msm_nc=1):
+            proof = device_api.prove_shuffle(g.cv, 2, 4, g.keys, *stmt)
+            checks = device_api.verify_shuffle(g.cv, 2, 4, g.keys, *stmt[:2], proof)
+        assert _proof_bytes(proof) == want, fuse_b_max
+        assert all(bool(c.all()) for c in checks), fuse_b_max
+    assert cuda_ops.LAUNCHES["blake2s"] > 0 and cuda_ops.LAUNCHES["chacha_draw"] > 0
+
+
+# Message lengths at the Blake2s kernel's block edges and the flows' rows
+# (64-byte Merkle pairs, 130-byte card leaves, 422-byte CP blobs with the
+# seed), and one long message.
+B2S_LENGTHS = [0, 1, 55, 63, 64, 65, 128, 130, 422, 6760]
+
+
+@pytest.mark.parametrize("lanes", [1, 3, 1025])
+def test_blake2s_kernel_equals_plain_and_hashlib(dev, lanes):
+    """The kernel's digest words and bytes equal the plain version's (the
+    CPU path) and hashlib's, with and without the seed suffix, on distinct
+    and on broadcast (stride-0) rows and suffixes."""
+    rng = np.random.default_rng(lanes)
+    for n in B2S_LENGTHS:
+        data = torch.as_tensor(rng.integers(0, 256, size=(lanes, n), dtype=np.uint8))
+        suffix = torch.as_tensor(rng.integers(0, 2**32, size=(lanes, 8), dtype=np.int64))
+        for rows in (data, data[:1].expand(lanes, n)):
+            for sfx in (None, suffix, suffix[:1].expand(lanes, 8)):
+                want = hash_dev.blake2s(rows, sfx)  # CPU tensors: the plain version
+                on_card = (rows.to(dev), None if sfx is None else sfx.to(dev))
+                got = hash_dev.blake2s(*on_card)
+                assert torch.equal(got.cpu(), want), (n, sfx is None)
+                if sfx is None:
+                    got_b = hash_dev.blake2s_bytes(on_card[0]).cpu().numpy()
+                    assert bytes(got_b[-1]) == hashlib.blake2s(rows[-1].numpy().tobytes()).digest(), n
+                    assert np.array_equal(got_b, hash_dev.words_to_bytes(want).numpy()), n
+
+
+def _draw_both(dev, fld, seed, widx, K):
+    got = transcript_dev._draw(seed.to(dev), widx.to(dev), fld, K)
+    want = transcript_dev._draw(seed, widx, fld, K)  # CPU tensors: the plain version
+    return [t.cpu() for t in got], want
+
+
+@pytest.mark.parametrize("fname", ["stark_fr", "bls12_377_fr", "bls12_377_fq"])
+def test_chacha_draw_kernel_equals_plain(dev, fname):
+    """Value, found and advance bit for bit at K = 8 and 64 from keystream
+    words 0, 15, 16, 17 and 1,000 (nw = 8, 8, 12), on distinct keys and on
+    one broadcast key."""
+    fld = getattr(tfield, fname)()
+    rng = np.random.default_rng(7)
+    seed = torch.as_tensor(rng.integers(0, 2**32, size=(257, 8), dtype=np.int64))
+    before = cuda_ops.LAUNCHES["chacha_draw"]
+    for K in (8, 64):
+        for start in (0, 15, 16, 17, 1000):
+            widx = torch.as_tensor(start + rng.integers(0, 3, size=257))
+            for keys in (seed, seed[:1].expand(257, 8)):
+                got, want = _draw_both(dev, fld, keys, widx, K)
+                assert all(torch.equal(a, b) for a, b in zip(got, want)), (K, start)
+    assert cuda_ops.LAUNCHES["chacha_draw"] == before + 20
+
+
+def test_chacha_draw_kernel_lanes_without_accept(dev):
+    """K = 1 over 4,096 lanes: about half the Stark Fr lanes accept no
+    candidate; their value (the masked candidate), found and advance equal
+    the plain version's."""
+    fld = tfield.stark_fr()
+    rng = np.random.default_rng(11)
+    seed = torch.as_tensor(rng.integers(0, 2**32, size=(4096, 8), dtype=np.int64))
+    widx = torch.as_tensor(rng.integers(0, 2000, size=4096))
+    got, want = _draw_both(dev, fld, seed, widx, 1)
+    assert 0 < int((~want[1]).sum()) < 4096
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
